@@ -5,16 +5,19 @@
 
 The path is the one bench.py measures for the JAX package: a 1M × 128 f32
 DenseTable of bench.make_data's clustered surrogate (seed 0), the exact
-L2 top-10 ground truth through FlatIndex (kernel K1), an HNSW wave build
-(m=16, ef_construction=64, wave 1024, build beam 4, dedup off), then the
-layer-0 beam search over the packed slab cache with query beam 8 at ef 40
-and 100 (kernel K2), recall@10 and QPS.  Before that it builds both CUDA
-kernels from pgvector_tpu_torch/csrc and holds each against its plain
-PyTorch version on the card.
+L2 top-10 ground truth through FlatIndex (kernel K1, fused_topk), an HNSW
+wave build (m=16, ef_construction=64, wave 1024, build beam 4, dedup
+off), then the layer-0 beam search over the packed slab cache with query
+beam 8 at ef 40 and 100 (kernel K2, packed_hop: one launch a hop),
+recall@10 and QPS.  Before that it builds the CUDA kernels from
+pgvector_tpu_torch/csrc and holds K1 and K2's tail (hop_tail) against
+their plain PyTorch versions on the card; after it, K2 itself on hop
+states captured from the 1M graph.
 
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
-kernel and plain times at the main path's shapes); the card's name and
+kernel, plain and library times at the main path's shapes, and the
+least time the card could take for the same work); the card's name and
 power limit, raw as nvidia-smi prints them, on a line of their own
 (the smoke's output contract reads that line as well as the device
 phase's copy); and last {"ok": true, "device": {...}}.  Any failed check
@@ -27,6 +30,19 @@ import os
 import subprocess
 import sys
 import time
+
+
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+TF32_FLOPS = 495e12
+F32_FLOPS = 67e12
+
+
+def bound_ms(nbytes, flops=0.0, rate=F32_FLOPS):
+    """The least time for the work: (ms, what bounds it) — bytes moved once
+    at the memory rate against operations at the type's peak."""
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def emit(obj):
@@ -55,6 +71,31 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def profile_search(idx, qs, k, ef, top=8):
+    """Where one search's time goes: wall seconds, summed kernel seconds
+    (torch.profiler's CUDA kernel events) and the busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idx.search(qs, k, ef_search=ef)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernel_s = sum(ms for _, ms, _ in kernels) / 1e3
+    kernels.sort(key=lambda x: -x[1])
+    return {"phase": "profile", "ef": ef, "wall_s": wall,
+            "kernel_s": kernel_s, "busy_share": kernel_s / wall,
+            "kernel_launches": sum(c for _, _, c in kernels),
+            "top_ms": [[name[:72], ms, c] for name, ms, c in kernels[:top]]}
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,6 +112,9 @@ def main():
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="table rows (default: the bench's 1M)")
     ap.add_argument("--queries", type=int, default=8000)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one search at ef 40 and 100 with "
+                    "torch.profiler (kernel time by name, busy share)")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -79,11 +123,13 @@ def main():
     import numpy as np
 
     from bench import make_data
-    from torch_parity import ATOL, RTOL, assert_same_topk
+    from torch_parity import ATOL, RTOL, assert_same_pool, assert_same_topk
     from pgvector_tpu_torch import DenseTable, FlatIndex, HNSWIndex, Metric
     from pgvector_tpu_torch.ops import _cuda
     from pgvector_tpu_torch.ops.fused_topk import fused_topk, fused_topk_plain
+    from pgvector_tpu_torch.index import hnsw_kernels
     from pgvector_tpu_torch.ops.hop_tail import hop_tail, hop_tail_plain
+    from pgvector_tpu_torch.ops.packed_hop import packed_hop, packed_hop_plain
     from pgvector_tpu_torch.utils.telemetry import timers
 
     dev = torch.device("cuda", 0)
@@ -124,16 +170,27 @@ def main():
                 fin = np.isfinite(d0)
                 k1.append({
                     "queries": nq, "metric": metric, "k": k,
-                    "max_abs_err": float(np.abs(d1 - d0)[fin].max()),
+                    "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max()),
                     "ids_equal_frac": float((i0 == i1).mean()),
                     "ms": cuda_ms(lambda: fused_topk(qk, data, dbsq, k)),
                     "plain_ms": cuda_ms(
                         lambda: fused_topk_plain(qk, data, dbsq, k))})
+    # the library yardstick: the cuBLAS f32 product alone (TF32 off), which
+    # the port never calls; beside K1's 1,000-query time
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    q_lib = qs_dev[:1000].contiguous()
+    k1_lib_ms = cuda_ms(lambda: torch.mm(q_lib, data.T))
+    nq0, n0 = args.queries, table.count
+    k1_bound, k1_by = bound_ms(4 * (nq0 * 128 + n0 * 129) + 8 * nq0 * 10,
+                               3 * 2.0 * nq0 * n0 * 128, TF32_FLOPS)
     emit({"phase": "k1_vs_plain", "rows": table.count,
-          "atol": ATOL, "rtol": RTOL, "cases": k1})
+          "atol": ATOL, "rtol": RTOL, "cases": k1,
+          "library_ms_1000q": k1_lib_ms,
+          "bound_ms": k1_bound, "bound_by": k1_by,
+          "bound_f32_cores_ms": 2.0 * nq0 * n0 * 128 / F32_FLOPS * 1e3})
 
     # ---- 3. K2 against its plain version: Q = 8,000, W = 256 ------------
-    k2 = []
+    k2_tail = []
     g = torch.Generator(device="cpu").manual_seed(0)
     q2, w = 8000, 256
     for ef in (24, 40, 64, 100):
@@ -158,14 +215,15 @@ def main():
         check(torch.equal(p1, p0) and torch.equal(d1, d0),
               f"hop_tail kernel equals its plain version at ef={ef}")
         fin = torch.isfinite(d0)
-        k2.append({"ef": ef, "w": w, "equal": True,
+        k2_tail.append({"ef": ef, "w": w, "equal": True,
                    "max_abs_err": float((d1 - d0)[fin].abs().max()),
                    "ms": cuda_ms(lambda: hop_tail(*hop, ef, w)),
                    "plain_ms": cuda_ms(lambda: hop_tail_plain(*hop, ef, w))})
-    emit({"phase": "k2_vs_plain", "queries": q2, "cases": k2})
+    emit({"phase": "hop_tail_vs_plain", "queries": q2, "cases": k2_tail})
 
     # ---- 4. the main path -------------------------------------------------
     fused_topk.launches = 0
+    packed_hop.launches = 0
     hop_tail.launches = 0
     torch.cuda.reset_peak_memory_stats()
     k = 10
@@ -201,12 +259,15 @@ def main():
           f"the 1M packed plan is bf16, not {plan}")
     sweep = []
     floors = {40: 0.94, 100: 0.985}  # the reference: 0.9583 and 0.9947
+    hops = 0  # layer-0 hops of every search below, warm-ups included
     for ef in (40, 100):
         idx.search(qs, k, ef_search=ef)  # warm-up: builds the slab cache
         torch.cuda.synchronize()
+        hops += idx._last_scan_steps
         t0 = time.perf_counter()
         dist, r = idx.search(qs, k, ef_search=ef)
         dt = time.perf_counter() - t0
+        hops += idx._last_scan_steps
         check(r.shape == (len(qs), k) and np.isfinite(dist).all(),
               f"finite results of shape {(len(qs), k)}, got {r.shape}")
         hits = sum(len(set(a.tolist()) & set(b.tolist()))
@@ -218,29 +279,99 @@ def main():
         check(recall >= floors[ef], f"recall@10 {recall} >= {floors[ef]} "
               f"at ef={ef}")
     launches = {"fused_topk": fused_topk.launches,
+                "packed_hop": packed_hop.launches,
                 "hop_tail": hop_tail.launches}
-    check(launches["hop_tail"] > 0, "the search went through K2")
+    check(launches["packed_hop"] == hops,
+          f"every layer-0 hop went through K2: {launches['packed_hop']} "
+          f"launches for {hops} hops")
     emit({"phase": "main_path", "n": args.n, "queries": len(qs),
           "reduced": args.n != 1_000_000, "data_s": data_s,
           "exact_gt_s": gt_s, "build_s": build_s,
           "build_phases": {k: v["total_s"] for k, v in timers.report().items()},
           "packed": str(plan).replace("torch.", ""), "sweep": sweep,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches})
+          "launches": launches, "layer0_hops": hops})
+
+    # ---- 5. K2 against its plain version on hop states of the 1M graph ---
+    # the inputs of hops 0, 4 and 12 of one search at ef 40 and at ef 100
+    states = {}
+    calls = []
+
+    def record(*a):
+        if len(calls) in (0, 4, 12):
+            states[(ef, len(calls))] = [
+                t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
+                else t for t in a]
+        calls.append(1)
+        return packed_hop(*a)
+
+    hnsw_kernels.packed_hop = record
+    try:
+        for ef in (40, 100):
+            calls.clear()
+            idx.search(qs, k, ef_search=ef)
+    finally:
+        hnsw_kernels.packed_hop = packed_hop
+    check(len(states) == 6, f"captured hops {sorted(states)}")
+    k2 = []
+    for (ef, hop), st in sorted(states.items()):
+        d1, p1 = packed_hop(*st)
+        d0, p0 = packed_hop_plain(*st)
+        torch.cuda.synchronize()
+        d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
+        assert_same_pool(d0, p0, d1, p1)
+        fin = np.isfinite(d0)
+        k2.append({"ef": ef, "hop": hop,
+                   "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max()),
+                   "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())})
+    # timed at the main path's shapes: ef 100, hop 4 (Q = 8,000, E = 8)
+    st = states[(100, 4)]
+    pool_d, _, sel, nbr0, vals, qs_p, ef, _ = st
+    q_rows, m2, dim = len(qs_p), nbr0.shape[1], vals.shape[2]
+    live = sel[sel >= 0].long()
+    cands = int((nbr0[live] >= 0).sum())
+    k2_bound, k2_by = bound_ms(
+        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
+        + vals.element_size() * dim * cands + 4 * q_rows * dim,
+        2.0 * cands * dim)
+    k2_ms = cuda_ms(lambda: packed_hop(*st))
+    k2_plain = cuda_ms(lambda: packed_hop_plain(*st))
+    emit({"phase": "packed_hop_vs_plain", "queries": q_rows,
+          "expand": sel.numel() // q_rows, "slab": str(vals.dtype),
+          "atol": ATOL, "rtol": RTOL, "cases": k2,
+          "timed": {"ef": ef, "hop": 4, "live_candidates": cands,
+                    "ms": k2_ms, "plain_ms": k2_plain,
+                    "bound_ms": k2_bound, "bound_by": k2_by}})
+    w_tail = 256
+    tail_bound, tail_by = bound_ms(8 * q2 * (2 * 100 + w_tail))
+    if args.profile:
+        for ef in (40, 100):
+            emit(profile_search(idx, qs, k, ef))
 
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/fused_topk.cu",
          "replaces": "pgvector_tpu/ops/pallas_topk.py:95",
-         "launches": launches["fused_topk"],
+         "launches": launches["fused_topk"], "on_main_path": True,
          "max_abs_err": max(c["max_abs_err"] for c in k1),
-         "ms": k1[0]["ms"], "plain_ms": k1[0]["plain_ms"]},
+         "ms": k1[0]["ms"], "plain_ms": k1[0]["plain_ms"],
+         "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": k1_lib_ms, "library_queries": 1000,
+         "ms_at_library_queries": k1[4]["ms"]},
+        {"name": "packed_hop", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
+         "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
+         "launches": launches["packed_hop"], "on_main_path": True,
+         "max_abs_err": max(c["max_abs_err"] for c in k2),
+         "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "hop_tail", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/hop_tail.cu",
          "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
-         "launches": launches["hop_tail"],
-         "max_abs_err": max(c["max_abs_err"] for c in k2),
-         "ms": k2[-1]["ms"], "plain_ms": k2[-1]["plain_ms"]},
+         "launches": launches["hop_tail"], "on_main_path": False,
+         "max_abs_err": max(c["max_abs_err"] for c in k2_tail),
+         "ms": k2_tail[-1]["ms"], "plain_ms": k2_tail[-1]["plain_ms"],
+         "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

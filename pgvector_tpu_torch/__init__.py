@@ -1,12 +1,16 @@
 """pgvector_tpu_torch — the PyTorch / CUDA port of ``pgvector_tpu``.
 
 The same engine as the JAX package (reference: pgvector/pgvector 0.8.6),
-on torch tensors: dense tables on a chosen ``device``, exact search and
-HNSW, with the JAX package's two Pallas kernels as hand-written CUDA
-kernels for Hopper (``csrc/``; built with ``nvcc`` at first use):
+on torch tensors: dense tables on the card (or a ``device`` the caller
+names, such as ``"cpu"``), exact search and HNSW, with the JAX package's
+two Pallas kernels as hand-written CUDA kernels for Hopper (``csrc/``;
+built with ``nvcc`` at first use):
 
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
-- K2 :mod:`pgvector_tpu_torch.ops.hop_tail` — HNSW beam-search hop tail
+  (3xTF32 on the tensor cores)
+- K2 :mod:`pgvector_tpu_torch.ops.packed_hop` — one HNSW beam-search hop
+  (neighbor ids, slab scores and the hop tail); the tail alone is
+  :mod:`pgvector_tpu_torch.ops.hop_tail`
 
 Each kernel has a plain PyTorch version of the same function, used for
 CPU tensors.  The package imports neither ``jax`` nor ``pgvector_tpu``.

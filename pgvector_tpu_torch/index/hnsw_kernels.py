@@ -22,8 +22,8 @@ From JAX to PyTorch:
 
 The visited set is mode ``off`` (the reference's default): the pool
 membership check keeps the ef pool duplicate-free.  The hash modes come
-with iterative scans.  The packed query hop ends in K2
-(:func:`..ops.hop_tail.hop_tail`).
+with iterative scans.  The packed query hop is one kernel, K2
+(:func:`..ops.packed_hop.packed_hop`).
 """
 
 from __future__ import annotations
@@ -32,8 +32,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops.hop_tail import hop_tail
+from ..ops.distance import dense_point_scores
 from ..ops.metric import Metric
+from ..ops.packed_hop import packed_hop
 
 BIG = 3.0e38
 
@@ -52,26 +53,6 @@ def _long(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # distance closure: query batch -> distances to a (Q, R) block of element ids
 # ---------------------------------------------------------------------------
-
-
-def dense_point_scores(metric: Metric, qs: torch.Tensor, vf: torch.Tensor,
-                       rows: torch.Tensor) -> torch.Tensor:
-    """(Q, W, D) candidate values vs (Q, D) queries → (Q, W) f32 stored
-    distances; negative ids give +inf.  Elementwise f32 math, as the
-    reference's scorer (no expanded-norm form)."""
-    qf = qs.float()[:, None, :]
-    vf = vf.float()
-    if metric is Metric.L2:
-        d = torch.sum((qf - vf) ** 2, dim=-1)
-    elif metric is Metric.IP or metric is Metric.COSINE:
-        # cosine opclasses store normalized values and order by -ip
-        # (sql/vector.sql:437-441)
-        d = -torch.sum(qf * vf, dim=-1)
-    elif metric is Metric.L1:
-        d = torch.sum(torch.abs(qf - vf), dim=-1)
-    else:
-        raise ValueError(metric)
-    return torch.where(rows >= 0, d, torch.inf)
 
 
 def make_scorer(metric: Metric, vecs: torch.Tensor):
@@ -129,10 +110,11 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     per query, gather their neighbors, score the new ones and merge them
     into the pool.  Returns (pool_d, pool_i, pool_x, done).
 
-    ``packed`` — optional ``(nbr_vals, qs_p)``: adjacency-packed neighbor
-    values ``nbr_vals[cap, 2m, D]`` (f32 or bf16) and the queries to score
-    them against.  Each expanded node's neighbor values are one contiguous
-    slab, and the tail runs in K2."""
+    ``packed`` — optional ``(nbr_vals, qs_p, nbr0)``: adjacency-packed
+    neighbor values ``nbr_vals[cap, 2m, D]`` (f32 or bf16), the queries to
+    score them against and the level-0 lists.  Each expanded node's
+    neighbor values are one contiguous slab; the neighbor ids, the slab
+    scores and the merge run in K2."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -150,19 +132,18 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     ok = torch.isfinite(sel_d) & (sel_d <= worst[:, None]) & ~done[:, None]
     pool_x = pool_x.scatter(1, sel, torch.gather(pool_x, 1, sel) | ok)
     sel_elem = torch.where(ok, torch.gather(pool_i, 1, sel), -1)
-    # all selected candidates' neighbors in one flattened gather
     sel_flat = sel_elem.reshape(-1)
+    if packed is not None:
+        # neighbor ids, slab scores and the merge in one kernel (K2)
+        nbr_vals, qs_p, nbr0 = packed
+        pool_packed = pool_i * 2 + pool_x.to(torch.int32)
+        d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
+                           sel_flat.contiguous(), nbr0, nbr_vals, qs_p, ef,
+                           metric)
+        return d, pp >> 1, (pp & 1) == 1, done
+    # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
     nbrs = torch.where(sel_flat[:, None] >= 0, nb, -1).reshape(nq, -1)
-    if packed is not None:
-        nbr_vals, qs_p = packed
-        w = nbrs.shape[1]
-        v = nbr_vals[_long(sel_flat)].reshape(nq, w, nbr_vals.shape[-1])
-        nd = dense_point_scores(metric, qs_p, v, nbrs)
-        pool_packed = pool_i * 2 + pool_x.to(torch.int32)
-        d, pp = hop_tail(pool_d.contiguous(), pool_packed.contiguous(),
-                         nd.contiguous(), nbrs.contiguous(), ef, w)
-        return d, pp >> 1, (pp & 1) == 1, done
     if sel_elem.shape[1] > 1:
         # dedupe within the hop (two expanded nodes sharing a neighbor):
         # sort by the Knuth permutation of the id and mask adjacent equals
@@ -582,10 +563,10 @@ def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
 
     ``packed_vals`` — optional adjacency-packed neighbor values
     (nbr_vals[cap, 2m, D], f32 or bf16): layer 0 scores whole neighbor
-    slabs, and each hop's tail runs in K2.  With ``rerank`` the final pool
-    is re-scored against the exact f32 values, so a bf16 cache changes
-    only pool admission, never the emitted order.  Returns (stored
-    distances, row ids, layer-0 hops)."""
+    slabs, and each hop after the selection runs in K2.  With ``rerank``
+    the final pool is re-scored against the exact f32 values, so a bf16
+    cache changes only pool admission, never the emitted order.  Returns
+    (stored distances, row ids, layer-0 hops)."""
     score = make_scorer(metric, vecs)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
     nq = qs.shape[0]
@@ -594,7 +575,8 @@ def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
     for lc in range(entry_level, 0, -1):
         cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
                                     max_steps=512)
-    packed = (packed_vals, qs) if packed_vals is not None else None
+    packed = ((packed_vals, qs.contiguous(), nbr0)
+              if packed_vals is not None else None)
     pool_d, pool_i, steps = search_layer(
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
         ef=ef, max_steps=8 * ef + 64, expand=expand,

@@ -30,8 +30,8 @@ HNSW_FIELDS = ("m", "ef_construction", "entry", "entry_level", "n_elems",
 
 def table_from_numpy(db: np.ndarray, valid: np.ndarray,
                      device=None) -> DenseTable:
-    """A DenseTable on ``device`` holding rows ``db`` with validity
-    ``valid`` (False = deleted row)."""
+    """A DenseTable on ``device`` (default: the card, as every table)
+    holding rows ``db`` with validity ``valid`` (False = deleted row)."""
     db = np.asarray(db)
     table = DenseTable(db.shape[1], dtype=torch.float32,
                        capacity=max(len(db), 1), device=device)

@@ -1,6 +1,6 @@
-"""Tensor ops — dense distances, tiled top-k and the two CUDA kernels:
-K1 (:mod:`.fused_topk`, exact scan) and K2 (:mod:`.hop_tail`, beam-search
-hop tail)."""
+"""Tensor ops — dense distances, tiled top-k and the CUDA kernels: K1
+(:mod:`.fused_topk`, exact scan) and K2 (:mod:`.packed_hop`, one fused
+beam-search hop, whose tail :mod:`.hop_tail` also offers alone)."""
 
 from .metric import Metric, stored_to_user, NORMALIZED_METRICS
 from .distance import dense_scores, dense_pair, sq_norms, dot_precision

@@ -1,10 +1,11 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, ``_build/
-libpgvt_kernels.so``, which is loaded with ``ctypes``.  The build runs at
-the first kernel launch and again whenever a hash of the sources and flags
-changes; nothing is built when the package is imported.  Each C entry
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, ``_build/libpgvt_kernels.so``, which is
+loaded with ``ctypes``.  The build runs at the first kernel launch and
+again whenever a hash of the sources, their headers (``csrc/*.cuh``) and
+the flags changes; nothing is built when the package is imported.  Each C entry
 point launches on the stream it is given and returns the
 ``cudaGetLastError()`` of its launch.
 """
@@ -25,7 +26,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libpgvt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int
@@ -36,6 +37,10 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P],
     # pool_d, pool_p, cand_d, cand_i, q, ef, w, out_d, out_p, stream
     "pgvt_hop_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # pool_d, pool_p, sel, nbr0, nbr_vals, qs, q, ef, e_sel, m2, d, bf16,
+    # metric, out_d, out_p, stream
+    "pgvt_packed_hop": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -50,7 +55,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(SRC_DIR.glob("*.cu*")):  # the sources and their headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -73,18 +78,35 @@ def build() -> Path:
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libpgvt_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"libpgvt_kernels.{tag}.so"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(_sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [o for p, o in zip(procs, outs) if p.returncode]
+    if not failed:
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode:
+            failed.append(proc.stdout)
     build_seconds = time.perf_counter() - t0
+    for o in objs:
+        o.unlink(missing_ok=True)
     # ptxas -v reports registers, shared memory and spills per kernel
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+    (BUILD_DIR / "nvcc.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
     stamp.write_text(digest)
     return LIB_PATH

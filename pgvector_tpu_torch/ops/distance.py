@@ -74,6 +74,26 @@ def dense_scores(
     raise ValueError(f"metric {metric} is not a dense metric")
 
 
+def dense_point_scores(metric: Metric, qs: torch.Tensor, vf: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """(Q, W, D) candidate values vs (Q, D) queries → (Q, W) f32 stored
+    distances; negative ids give +inf.  Elementwise f32 math, as the
+    reference's scorer (no expanded-norm form)."""
+    qf = qs.float()[:, None, :]
+    vf = vf.float()
+    if metric is Metric.L2:
+        d = torch.sum((qf - vf) ** 2, dim=-1)
+    elif metric is Metric.IP or metric is Metric.COSINE:
+        # cosine opclasses store normalized values and order by -ip
+        # (sql/vector.sql:437-441)
+        d = -torch.sum(qf * vf, dim=-1)
+    elif metric is Metric.L1:
+        d = torch.sum(torch.abs(qf - vf), dim=-1)
+    else:
+        raise ValueError(metric)
+    return torch.where(rows >= 0, d, torch.inf)
+
+
 def dense_pair(metric: Metric, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise stored distance for aligned batches (B, D) x (B, D) → (B,)."""
     af = a.float()

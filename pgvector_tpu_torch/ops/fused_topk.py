@@ -28,9 +28,9 @@ from .topk import merge_topk
 
 #: the kernel keeps each query's k best in shared memory
 MAX_K = 64
-#: DB rows per pass-1 tile and the most DB splits pass 2 merges
-_RT, _MAX_SPLITS = 64, 64
-_QT, _SMS = 64, 132
+#: queries per pass-1 block, DB rows per tile, the most DB splits pass 2
+#: merges (csrc/fused_topk.cu: BQ, BR, MAX_SPLITS)
+_QT, _RT, _MAX_SPLITS = 128, 128, 64
 
 
 def supported(metric: Metric, dtype) -> bool:
@@ -59,12 +59,21 @@ def fused_topk_plain(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
     return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
-def _splits(nq: int, n: int) -> Tuple[int, int]:
-    """(DB splits, row tiles per split): enough blocks to fill the SMs
-    about four times over."""
+def _splits(nq: int, n: int, sms: int) -> Tuple[int, int]:
+    """(DB splits, row tiles per split).  Pass 1 holds one block per SM
+    and its blocks take equal time, so the grid should fill whole waves:
+    of the split counts that give at least one full wave, take the one
+    whose last wave is fullest, and the fewest splits among equals."""
     tiles = -(-n // _RT)
     q_tiles = -(-nq // _QT)
-    want = min(_MAX_SPLITS, tiles, max(1, -(-4 * _SMS // q_tiles)))
+    top = min(_MAX_SPLITS, tiles)
+    lo = min(top, max(1, -(-sms // q_tiles)))
+
+    def fill(s):
+        blocks = q_tiles * -(-tiles // -(-tiles // s))
+        return blocks / (-(-blocks // sms) * sms)
+
+    want = max(range(lo, top + 1), key=lambda s: (round(fill(s), 3), -s))
     per = -(-tiles // want)
     return -(-tiles // per), per
 
@@ -97,7 +106,8 @@ def fused_topk(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
         return out_d, out_i
     if n == 0:
         return out_d.fill_(torch.inf), out_i.fill_(-1)
-    splits, per = _splits(nq, n)
+    splits, per = _splits(nq, n, torch.cuda.get_device_properties(
+        qs.device).multi_processor_count)
     part_d = torch.empty((splits, nq, k), dtype=torch.float32,
                          device=qs.device)
     part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=qs.device)

@@ -1,5 +1,6 @@
-"""K2 — fused hop tail of the packed HNSW beam search; replaces
-``pgvector_tpu.ops.pallas_hop``.
+"""K2's tail — the hop tail of the packed HNSW beam search, the function
+of ``pgvector_tpu.ops.pallas_hop``.  The search runs it inside the fused
+hop (:mod:`.packed_hop`); this entry takes distances scored elsewhere.
 
 Per query row the tail merges W freshly scored candidates into the ef pool
 (ids packed as ``id·2 | expanded``):
@@ -11,9 +12,10 @@ Per query row the tail merges W freshly scored candidates into the ef pool
 2. order by (distance, position) — the stable distance order;
 3. emit the first ef lanes, +inf / -2 where empty.
 
-The CUDA kernel (``csrc/hop_tail.cu``) does this with two bitonic sorts in
-shared memory; :func:`hop_tail_plain` does it with two stable
-``torch.sort`` calls.  Both only move values, so they agree bit for bit.
+The CUDA kernel (``csrc/hop_tail.cu`` over ``csrc/hop_merge.cuh``) does
+this with two bitonic sorts in registers and warp shuffles;
+:func:`hop_tail_plain` does it with two stable ``torch.sort`` calls.
+Both only move values, so they agree bit for bit.
 :func:`hop_tail` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors.
 """
@@ -83,10 +85,7 @@ def hop_tail(pool_d: torch.Tensor, pool_p: torch.Tensor,
             f"{tuple(cand_i.shape)}, ef={ef}, w={w}")
     if not (pool_d.device == pool_p.device == cand_d.device == cand_i.device):
         raise ValueError("hop_tail inputs must be on one device")
-    width = 1
-    while width < ef + w:
-        width *= 2
-    if width > MAX_WIDTH:
+    if ef + w > MAX_WIDTH:
         raise ValueError(f"hop_tail sorts at most {MAX_WIDTH} lanes per row; "
                          f"ef + W = {ef + w}")
     out_d = torch.empty((q, ef), dtype=torch.float32, device=pool_d.device)

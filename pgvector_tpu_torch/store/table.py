@@ -6,7 +6,8 @@ A table is a padded device tensor plus a validity mask.  Rows are
 addressed by their insertion index (the heap TID analogue); deletes flip
 the mask (dead tuples), and indexes consult it the way index scans consult
 the heap.  Appends past the capacity grow it to the next power of two.
-Every index inherits the table's ``device``.
+Every index inherits the table's ``device``, which is the card unless the
+caller names another (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -34,12 +35,23 @@ def _initial_cap(requested: int) -> int:
     return max(-(-requested // 256) * 256, 1024)
 
 
+def _resolve_device(device) -> torch.device:
+    """The caller's device, or the card when none is named.  Without a card
+    an unnamed device is an error, never a quiet move to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise DataException(
+            'no CUDA device: tables live on the card by default; '
+            'pass device="cpu" to keep one on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class BaseTable:
     """Shared row bookkeeping: count, capacity, validity mask."""
 
     def __init__(self, capacity: int, device=None):
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = _resolve_device(device)
         self.count = 0
         self.capacity = capacity
         self.valid = torch.zeros(capacity, dtype=torch.bool,

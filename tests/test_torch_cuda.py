@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1 (fused top-k) and K2 (hop tail)
-against their plain PyTorch versions, and the HNSW scan on CUDA against
-the same scan on the CPU.  Every test needs an NVIDIA Hopper GPU and
-``nvcc`` (the kernels build at first use) and skips elsewhere.
+"""The port's CUDA kernels on the card: K1 (fused top-k, 3xTF32) and K2
+(the fused packed hop, and its hop tail alone) against their plain PyTorch
+versions, and the HNSW scan on CUDA against the same scan on the CPU.
+Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
+first use) and skips elsewhere.
 
 On the card (which has no JAX; ``--noconftest`` skips tests/conftest.py,
 which configures JAX for the reference's tests):
@@ -22,7 +23,10 @@ from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
     fused_topk, fused_topk_plain)
 from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
     MAX_WIDTH, hop_tail, hop_tail_plain)
-from torch_parity import assert_same_topk  # noqa: E402
+from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
+    packed_hop, packed_hop_plain)
+from torch_parity import (  # noqa: E402
+    assert_same_pool, assert_same_topk, packed_hop_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +56,28 @@ def test_fused_topk_kernel_matches_plain(dev, nq, n, d, k, ip):
     d0, i0 = fused_topk_plain(q, db, dbsq, k)
     assert_same_topk(d0.cpu(), i0.cpu(), d1.cpu(), i1.cpu())
     assert i1.dtype == torch.int32
+
+
+@pytest.mark.parametrize("d", [7, 128, 960])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_fused_topk_3xtf32_edge_cases(dev, d, k):
+    """The tensor-core K1 at a ragged row and query count, dims that are
+    not a multiple of the 32-dim chunk (7: nor of a 16-byte load), 10 %
+    dead rows and duplicated rows whose scores tie exactly."""
+    rng = np.random.default_rng(d * 100 + k)
+    n, nq = 20037, 130
+    db = rng.normal(size=(n, d)).astype(np.float32) * 1.5
+    db[5000:5100] = db[:100]  # ties, broken by the lower id
+    q = torch.tensor(db[rng.choice(n, nq)] + rng.normal(size=(nq, d)) * 0.1,
+                     dtype=torch.float32, device=dev)
+    db = torch.tensor(db, device=dev)
+    dbsq = (db * db).sum(1)
+    dbsq[torch.tensor(rng.random(n) < 0.1, device=dev)] = torch.inf
+    d1, i1 = fused_topk(q, db, dbsq, k)
+    d0, i0 = fused_topk_plain(q, db, dbsq, k)
+    torch.cuda.synchronize()
+    assert_same_topk(d0.cpu(), i0.cpu(), d1.cpu(), i1.cpu())
+    assert not torch.isinf(d1).any()
 
 
 def test_fused_topk_kernel_rejects(dev):
@@ -84,8 +110,9 @@ def _hop_inputs(dev, q, ef, w, seed):
     return [t.to(dev).contiguous() for t in (pool_d, pool_p, cand_d, cand_i)]
 
 
-@pytest.mark.parametrize("ef,w", [(8, 24), (40, 256), (100, 256),
-                                  (1000, 256), (1000, 3000)])
+@pytest.mark.parametrize("ef,w", [(8, 24), (24, 256), (40, 256),
+                                  (100, 256), (200, 300), (1000, 256),
+                                  (1000, 3000)])
 def test_hop_tail_kernel_equals_plain(dev, ef, w):
     args = _hop_inputs(dev, 300, ef, w, seed=ef + w)
     d1, p1 = hop_tail(*args, ef, w)
@@ -100,13 +127,69 @@ def test_hop_tail_kernel_rejects_wide_rows(dev):
         hop_tail(*args, 100, MAX_WIDTH)
 
 
+@pytest.mark.parametrize("d", [7, 33, 128, 960])
+@pytest.mark.parametrize("slab", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["L2", "IP", "L1"])
+@pytest.mark.parametrize("ef,e_sel", [(24, 8), (100, 1), (1000, 4)])
+def test_packed_hop_kernel_matches_plain(dev, d, slab, metric, ef, e_sel):
+    """K2 against its plain version on seeded hops: row-aligned and
+    unaligned slabs (16-byte loads or single values), every metric code,
+    one to eight slabs a row, tails of 64 to 2,048 lanes."""
+    case = packed_hop_case(d + ef, 37, ef, e_sel, d=d, cap=1200)
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    args[4] = args[4].to(slab)
+    launches = packed_hop.launches
+    d1, p1 = packed_hop(*args, ef, Metric[metric])
+    torch.cuda.synchronize()
+    assert packed_hop.launches == launches + 1
+    d0, p0 = packed_hop_plain(*args, ef, Metric[metric])
+    assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+
+
+def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
+    """K2 against its plain version on every hop state of searches over a
+    graph built on the card, f32 and bf16 slabs."""
+    from pgvector_tpu_torch.index import hnsw_kernels
+
+    rng = np.random.default_rng(9)
+    db = rng.normal(size=(6000, 32)).astype(np.float32)
+    q = db[:200] + rng.normal(size=(200, 32)).astype(np.float32) * 0.05
+    table = DenseTable(32, device=dev)
+    table.insert(db)
+    idx = HNSWIndex(table, Metric.L2, m=8, ef_construction=32,
+                    wave_size=512, beam_expand=4, dedup=False)
+    states = []
+
+    def record(*a):
+        states.append([t.clone() if torch.is_tensor(t) else t for t in a])
+        return packed_hop(*a)
+
+    monkeypatch.setattr(hnsw_kernels, "packed_hop", record)
+    for mode in ("f32", "bf16"):
+        monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", mode)
+        idx.search(q, 10, ef_search=40)
+    assert len(states) >= 10
+    for a in states:
+        d1, p1 = packed_hop(*a)
+        d0, p0 = packed_hop_plain(*a)
+        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+
+
+def test_table_defaults_to_the_card(dev):
+    t = DenseTable(8)
+    assert t.device.type == "cuda" and t.data.is_cuda and t.valid.is_cuda
+    idx = HNSWIndex(t, Metric.L2, m=4, ef_construction=8, build=False,
+                    dedup=False)
+    assert idx.device.type == "cuda" and idx.nbr0.is_cuda
+
+
 def test_flat_and_hnsw_on_cuda_match_cpu(dev, monkeypatch):
     """Exact search launches K1 on CUDA; a CPU-built graph carried to the
     card answers packed scans (K2) with the CPU's ids apart from ties."""
     rng = np.random.default_rng(8)
     db = rng.normal(size=(6000, 32)).astype(np.float32)
     q = rng.normal(size=(64, 32)).astype(np.float32)
-    cpu_t, gpu_t = DenseTable(32), DenseTable(32, device=dev)
+    cpu_t, gpu_t = DenseTable(32, device="cpu"), DenseTable(32, device=dev)
     cpu_t.insert(db)
     gpu_t.insert(db)
     launches = fused_topk.launches
@@ -135,9 +218,9 @@ def test_flat_and_hnsw_on_cuda_match_cpu(dev, monkeypatch):
     for mode in ("f32", "bf16"):
         monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", mode)
         h0, r0 = cpu_idx.search(q, 10, ef_search=64)
-        launches = hop_tail.launches
+        launches = packed_hop.launches
         h1, r1 = gpu_idx.search(q, 10, ef_search=64)
-        assert hop_tail.launches > launches
+        assert packed_hop.launches == gpu_idx._last_scan_steps + launches
         assert_same_topk(h0, r0, h1, r1)
     # a graph built on the card draws the same levels and finds the exact
     # neighbours as well as the CPU-built one

@@ -25,7 +25,7 @@ def test_flat_search_matches_reference(metric, path, monkeypatch):
     db = rng.normal(size=(6000, 32)).astype(np.float32)
     q = rng.normal(size=(20, 32)).astype(np.float32)
     dead = rng.choice(6000, size=300, replace=False)
-    jt, tt = JTable(32), DenseTable(32)
+    jt, tt = JTable(32), DenseTable(32, device="cpu")
     jt.insert(db)
     tt.insert(db)
     jt.delete(dead)
@@ -36,6 +36,23 @@ def test_flat_search_matches_reference(metric, path, monkeypatch):
     assert flat.last_path == path
     assert_same_topk(d0, i0, d1, i1)
     assert not np.isin(i1, dead).any()
+
+
+def test_table_without_device_needs_a_card(monkeypatch):
+    """A table that names no device lives on the card; without one it
+    raises and names the way out, and never moves to the CPU quietly."""
+    from pgvector_tpu_torch.errors import DataException
+    from pgvector_tpu_torch.io.convert import table_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DataException, match='device="cpu"'):
+        DenseTable(8)
+    with pytest.raises(DataException, match='device="cpu"'):
+        table_from_numpy(np.zeros((4, 8), np.float32), np.ones(4, bool))
+    t = DenseTable(8, device="cpu")
+    t.insert(np.ones((3, 8), np.float32))
+    assert t.device.type == "cpu" and t.data.device.type == "cpu"
+    assert t.count == 3
 
 
 _VALUES = [
@@ -82,7 +99,7 @@ def test_flat_search_takes_value_types():
     rng = np.random.default_rng(7)
     db = rng.normal(size=(500, 8)).astype(np.float32)
     q = rng.normal(size=(3, 8)).astype(np.float16).astype(np.float32)
-    jt, tt = JTable(8), DenseTable(8)
+    jt, tt = JTable(8), DenseTable(8, device="cpu")
     jt.insert(db)
     tt.insert([Vector(r) for r in db])
     jflat, flat = JFlat(jt, JMetric.L2), FlatIndex(tt, Metric.L2)

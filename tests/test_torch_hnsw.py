@@ -73,7 +73,7 @@ def graphs():
     jt.insert(db)
     ref = JHNSW(jt, JMetric.L2, m=8, ef_construction=32, wave_size=256,
                 beam_expand=4, dedup=False)
-    tt = table_from_numpy(db, np.ones(len(db), bool))
+    tt = table_from_numpy(db, np.ones(len(db), bool), device="cpu")
     arrays, meta = _reference_state(ref)
     port = hnsw_from_numpy(tt, arrays, meta)
     exact = ((q[:, None, :] - db[None, :, :]) ** 2).sum(-1)
@@ -242,7 +242,7 @@ def test_port_build_recall_floor(metric, floor):
     rng = np.random.default_rng(2024)
     db = rng.random((5000, 3)).astype(np.float32)
     q = rng.random((20, 3)).astype(np.float32)
-    table = DenseTable(3)
+    table = DenseTable(3, device="cpu")
     table.insert(db)
     _, exact = FlatIndex(table, Metric[metric]).search(q, 20)
     idx = HNSWIndex(table, Metric[metric], m=16, ef_construction=64,
@@ -260,7 +260,7 @@ def test_port_build_skips_deleted_rows():
     rng = np.random.default_rng(15)
     db = rng.normal(size=(2000, 8)).astype(np.float32)
     valid = rng.random(2000) > 0.1
-    table = table_from_numpy(db, valid)
+    table = table_from_numpy(db, valid, device="cpu")
     idx = HNSWIndex(table, Metric.L2, m=8, ef_construction=32,
                     wave_size=512, beam_expand=4, dedup=False)
     assert idx.n_elems == valid.sum()

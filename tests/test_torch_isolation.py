@@ -22,7 +22,7 @@ _SCRIPT = textwrap.dedent("""
 
     rng = np.random.default_rng(0)
     db = rng.normal(size=(2000, 8)).astype(np.float32)
-    table = P.DenseTable(8)
+    table = P.DenseTable(8, device="cpu")
     table.insert(db)
     idx = P.HNSWIndex(table, P.Metric.L2, m=8, ef_construction=32,
                       wave_size=512, beam_expand=4, dedup=False)

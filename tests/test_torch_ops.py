@@ -1,5 +1,6 @@
 """Port ops against the reference: dense scores, the tiled top-k engine,
-and the plain versions of the two kernels (K1 fused top-k, K2 hop tail).
+and the plain versions of the kernels (K1 fused top-k, K2 packed hop and
+its hop tail), with a numpy rehearsal of K1's 3xTF32 precision.
 
 The same seeded numpy inputs go through the JAX function and its PyTorch
 counterpart, on the CPU.  K1 has no interpret mode in the reference
@@ -31,7 +32,10 @@ from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
 from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
     hop_tail, hop_tail_plain)
 from pgvector_tpu_torch.ops.metric import Metric as TMetric  # noqa: E402
-from torch_parity import ATOL, RTOL, assert_same_topk  # noqa: E402
+from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
+    packed_hop, packed_hop_plain)
+from torch_parity import (  # noqa: E402
+    ATOL, RTOL, assert_same_pool, assert_same_topk, packed_hop_case)
 
 METRICS = ["L2", "IP", "COSINE", "L1"]
 
@@ -153,3 +157,111 @@ def test_hop_tail_plain_equals_pallas(ef, w):
     d2, p2 = hop_tail(*args, ef, w)
     assert torch.equal(d1, d2) and torch.equal(p1, p2)
     assert hop_tail.launches == launches  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("ef", [24, 100])
+@pytest.mark.parametrize("e_sel", [1, 8])
+@pytest.mark.parametrize("slab", ["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+def test_packed_hop_plain_matches_reference_step(ef, e_sel, slab, metric):
+    """K2's plain version against the reference's packed Pallas-tail step
+    (the slab gather, ``dense_point_scores``, then ``pallas_hop.hop_tail``
+    in interpret mode) on the same seeded hop: the same pool apart from
+    ties, with f32 tolerance on distances; the CPU wrapper takes the plain
+    version."""
+    from pgvector_tpu.index import hnsw_kernels as JK
+
+    pool_d, pool_p, sel, nbr0, vals, qs = packed_hop_case(
+        ef * 10 + e_sel, 6, ef, e_sel)
+    q, w = len(qs), e_sel * nbr0.shape[1]
+    jvals = jnp.asarray(vals)
+    tvals = torch.from_numpy(vals)
+    if slab == "bf16":  # both round to nearest even
+        jvals, tvals = jvals.astype(jnp.bfloat16), tvals.to(torch.bfloat16)
+    safe = np.maximum(sel, 0)
+    nbrs = np.where(sel[:, None] >= 0, nbr0[safe], -1).reshape(q, w)
+    nd = JK.dense_point_scores(JMetric[metric], jnp.asarray(qs),
+                               jvals[safe].reshape(q, w, -1),
+                               jnp.asarray(nbrs))
+    d0, p0 = jax_hop_tail(pool_d, pool_p, nd, nbrs, ef, w)
+    args = [torch.from_numpy(a) for a in (pool_d, pool_p, sel, nbr0)] + [
+        tvals, torch.from_numpy(qs)]
+    d1, p1 = packed_hop_plain(*args, ef, TMetric[metric])
+    assert_same_pool(np.asarray(d0), np.asarray(p0), d1.numpy(), p1.numpy())
+    assert (p1.numpy()[np.isinf(d1.numpy())] == -2).all()
+    launches = packed_hop.launches
+    d2, p2 = packed_hop(*args, ef, TMetric[metric])
+    assert torch.equal(d1, d2) and torch.equal(p1, p2)
+    assert packed_hop.launches == launches  # CPU tensors launch nothing
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round the f32 mantissa to 10 bits, to nearest,
+    ties away from zero (the low 13 bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_dot(q, x, terms):
+    """K1's tensor-core product in numpy: a = hi + lo, the TF32 products
+    ``terms`` of (hi·hi, hi·lo, lo·hi) exact in f32, summed in f32 over
+    32-dim chunks and the chunks added in f32, as csrc/fused_topk.cu
+    does."""
+    qh, xh = _tf32(q), _tf32(x)
+    ql, xl = _tf32(q - qh), _tf32(x - xh)
+    pairs = {"hh": (qh, xh), "hl": (qh, xl), "lh": (ql, xh)}
+    acc = np.zeros((len(q), len(x)), np.float32)
+    for c in range(0, q.shape[1], 32):
+        part = np.zeros_like(acc)
+        for t in terms:
+            a, b = pairs[t]
+            part += (a[:, None, c:c + 32] * b[None, :, c:c + 32]).sum(
+                -1, dtype=np.float32)
+        acc += part
+    return acc
+
+
+def test_3xtf32_split_keeps_f32_tolerance():
+    """Rehearses K1's precision without a card: on the bench's clustered
+    128-d data (row norms near 400, scores near -160), the 3xTF32 score
+    ``dbsq - 2·q·x`` stays within ATOL/RTOL of the f64 score, where one
+    plain TF32 product does not."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from bench import make_data
+
+    db, qs = make_data(2048, 32, seed=0)
+    dbsq = (db * db).sum(1, dtype=np.float32)
+    want = dbsq[None, :].astype(np.float64) - 2.0 * (
+        qs.astype(np.float64) @ db.astype(np.float64).T)
+    assert np.median(want.min(axis=1)) < -100  # the cancelling regime
+    got = dbsq[None, :] - np.float32(2) * _split_dot(
+        qs, db, ("lh", "hl", "hh"))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    one = dbsq[None, :] - np.float32(2) * _split_dot(qs, db, ("hh",))
+    assert not np.allclose(one, want, atol=ATOL, rtol=RTOL)
+
+
+def test_k1_breakdown_cuts_apply_to_the_kernel():
+    """The K1 breakdown tool's cuts still find their anchors in
+    csrc/fused_topk.cu (each variant is a different source), and its data
+    is bench.make_data's."""
+    import os
+    import sys
+
+    from pgvector_tpu_torch.tools import k1_breakdown as K
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from bench import make_data
+
+    src = K.SOURCE.read_text()
+    variants = {v: K.variant_source(c, src) for v, c in K.VARIANTS.items()}
+    assert variants["whole"] == src
+    assert len(set(variants.values())) == len(variants)
+    for got, want in zip(K.clustered(3000, 40), make_data(3000, 40)):
+        np.testing.assert_array_equal(got, want)

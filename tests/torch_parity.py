@@ -41,3 +41,42 @@ def assert_same_topk(d_ref, i_ref, d_got, i_got, atol=ATOL, rtol=RTOL):
                 raise AssertionError(f"row {r}, positions {start}:{j}: ids "
                                      f"{a.tolist()} against {b.tolist()}")
             start = j
+
+
+def packed_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
+    """Seeded numpy inputs of one packed hop: (pool_d, pool_p, sel_flat,
+    nbr0, nbr_vals, qs).  Pools are sorted, duplicate-free and partly
+    expanded; row 1's pool is half empty; list slots and selections are
+    partly -1; row 3 selects nothing; row 0 meets a pool entry among its
+    candidates and, with e_sel > 1, row 2 selects one slab twice."""
+    rng = np.random.default_rng(seed)
+    nbr0 = rng.integers(0, cap, size=(cap, m2)).astype(np.int32)
+    nbr0[rng.random((cap, m2)) < 0.1] = -1
+    vals = rng.normal(size=(cap, m2, d)).astype(np.float32)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    pool_i = np.stack([rng.choice(cap, ef, replace=False)
+                       for _ in range(q)]).astype(np.int32)
+    pool_d = np.sort(rng.random((q, ef)).astype(np.float32) * 2 * d, axis=1)
+    pool_x = rng.random((q, ef)) > 0.5
+    pool_i[1, ef // 2:] = -1
+    pool_d[1, ef // 2:] = np.inf
+    pool_x[1, ef // 2:] = False
+    sel = rng.integers(0, cap, size=(q, e_sel)).astype(np.int32)
+    sel[rng.random((q, e_sel)) < 0.2] = -1
+    sel[0, 0] = 7
+    nbr0[7, 0] = pool_i[0, 0]
+    if e_sel > 1:
+        sel[2, 1] = sel[2, 0] = 11
+    sel[3] = -1
+    pool_p = pool_i * 2 + pool_x.astype(np.int32)
+    return pool_d, pool_p, sel.reshape(-1), nbr0, vals, qs
+
+
+def assert_same_pool(d_ref, p_ref, d_got, p_got, atol=ATOL, rtol=RTOL):
+    """Two hop results agree: (distance, id) lists as top-k lists, and the
+    expanded flags wherever the ids agree."""
+    p_ref, p_got = np.asarray(p_ref), np.asarray(p_got)
+    assert_same_topk(d_ref, p_ref >> 1, d_got, p_got >> 1, atol, rtol)
+    same = (p_ref >> 1) == (p_got >> 1)
+    if not ((p_ref & 1) == (p_got & 1))[same].all():
+        raise AssertionError("expanded flags differ where the ids agree")
