@@ -12,7 +12,11 @@ beam 8 at ef 40 and 100 (kernel K2, packed_hop: one launch a hop),
 recall@10 and QPS.  Before that it builds the CUDA kernels from
 pgvector_tpu_torch/csrc and holds K1 and K2's tail (hop_tail) against
 their plain PyTorch versions on the card; after it, K2 itself on hop
-states captured from the 1M graph.
+states captured from the 1M graph.  Last, the IVFFlat lane of bench.py
+on the same table (lists = n / 1000, seed 1): the build split into its
+phases, recall@10 and QPS at probes 1, 10 and 32, exhaustive probing
+against K1's ground truth, the two probe routes against each other,
+batch-1 latency, and the inverted probe scan's parts with their bounds.
 
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
@@ -94,6 +98,230 @@ def profile_search(idx, qs, k, ef, top=8):
             "kernel_s": kernel_s, "busy_share": kernel_s / wall,
             "kernel_launches": sum(c for _, _, c in kernels),
             "top_ms": [[name[:72], ms, c] for name, ms, c in kernels[:top]]}
+
+
+def profile_call(fn, top=6):
+    """CUDA kernels one call of ``fn`` launches, their summed device
+    milliseconds and the busiest ``top`` by name (torch.profiler's CUDA
+    kernel events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])
+    return (sum(c for _, _, c in ev), sum(ms for _, ms, _ in ev),
+            [[name[:72], ms, c] for name, ms, c in ev[:top]])
+
+
+def ivf_phase(table, qs, gt_d, gt, k, smi):
+    """Phase 6: the IVFFlat lane of bench.py (bench.py:609-640) on the
+    main path's table, through IVFFlatIndex's public entry points, then
+    its device programs one by one at the lane's shapes."""
+    import numpy as np
+    import torch
+
+    from torch_parity import ATOL, RTOL, assert_same_topk
+    from pgvector_tpu_torch import IVFFlatIndex, Metric
+    from pgvector_tpu_torch.index import ivf_kmeans, ivfflat
+    from pgvector_tpu_torch.utils.telemetry import timers
+
+    dev = table.device
+    nq, d = len(qs), table.dim
+    lists = max(min(table.count // 1000, 32768), 32)  # bench.py:619
+    # calls of the IVF device programs that have no hand kernel yet
+    calls = {"kmeans_assign": 0, "probe_order": 0, "probe_scan": 0}
+    wrapped = [(ivf_kmeans, "_assign", "kmeans_assign"),
+               (IVFFlatIndex, "_probe_order", "probe_order"),
+               (ivfflat, "_workitem_probe_topk", "probe_scan")]
+    saved = [getattr(o, n) for o, n, _ in wrapped]
+
+    def counting(fn, key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    for (o, n, key), fn in zip(wrapped, saved):
+        setattr(o, n, counting(fn, key))
+    try:
+        timers.reset()
+        timers.enabled = True
+        t0 = time.perf_counter()
+        ividx = IVFFlatIndex(table, Metric.L2, lists=lists, seed=1)
+        build_s = time.perf_counter() - t0
+        timers.enabled = False
+        build_calls = dict(calls)
+        sweep = []
+        for probes in (1, 10, 32):
+            ividx.search(qs, k, probes=probes)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist, r = ividx.search(qs, k, probes=probes)
+            dt = time.perf_counter() - t0
+            check(ividx.last_path == "inverted",
+                  f"probes={probes} took the inverted route")
+            check(r.shape == (nq, k) and np.isfinite(dist).all(),
+                  f"finite IVF results of shape {(nq, k)}, got {r.shape}")
+            hits = sum(len(set(a.tolist()) & set(b.tolist()))
+                       for a, b in zip(r, gt))
+            sweep.append({"probes": probes, "recall_at_10": hits / (nq * k),
+                          "qps": nq / dt, "s": dt})
+        search_calls = {key: calls[key] - build_calls[key] for key in calls}
+    finally:
+        for (o, n, _), fn in zip(wrapped, saved):
+            setattr(o, n, fn)
+    r10 = sweep[1]["recall_at_10"]
+    # the floor is the 1M lane's (lists 1,000); smaller tables have fewer
+    # lists than the surrogate's 1,024 clusters and lower recall
+    check(table.count != 1_000_000 or r10 >= 0.99,
+          f"IVF recall@10 {r10} >= 0.99 at probes=10")
+
+    # exhaustive probing is exact: K1's ground truth up to ties
+    t0 = time.perf_counter()
+    dx, rx = ividx.search(qs[:1000], k, probes=lists)
+    exhaustive_s = time.perf_counter() - t0
+    assert_same_topk(gt_d[:1000], gt[:1000], dx, rx)
+    fin = np.isfinite(dx)
+    exhaustive = {"queries": 1000, "probes": lists, "s": exhaustive_s,
+                  "path": ividx.last_path,
+                  "max_abs_err": float(np.abs(dx[fin] - gt_d[:1000][fin]).max()),
+                  "ids_equal_frac": float((rx == gt[:1000]).mean())}
+
+    # the two probe routes agree (tests/test_ivfflat.py:163-188)
+    routes = {}
+    for cov, path in ((10**9, "inverted"), (0, "blocks")):
+        ividx.INVERT_COVERAGE = cov
+        routes[path] = ividx.search(qs[:256], k, probes=10)
+        check(ividx.last_path == path, f"route {path} forced")
+    del ividx.INVERT_COVERAGE
+    (d_inv, i_inv), (d_blk, i_blk) = routes["inverted"], routes["blocks"]
+    assert_same_topk(d_inv, i_inv, d_blk, i_blk)
+    same_sets = float(np.mean([set(a[np.isfinite(x)]) == set(b[np.isfinite(x)])
+                               for a, b, x in zip(i_inv, i_blk, d_inv)]))
+    check(same_sets == 1.0, f"the routes return the same row sets "
+          f"({same_sets} of rows do)")
+
+    # batch-1 latency: one query a search, the block route
+    ividx.search(qs[0], k, probes=10)
+    lat = []
+    for i in range(200):
+        t0 = time.perf_counter()
+        ividx.search(qs[i], k, probes=10)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    route1 = "inverted" if 10 * ividx.INVERT_COVERAGE >= lists else "blocks"
+    check(ividx.last_path == route1, f"batch-1 took the {route1} route")
+    p50, p99 = np.percentile(lat, [50, 99])
+
+    # the inverted probe scan's parts at probes=10, all queries
+    qf = ividx._form_queries(qs)
+    order_ms = cuda_ms(lambda: ividx._probe_order(qf, 10))
+    order = ividx._probe_order(qf, 10)
+    sel_np = order.cpu().numpy()
+    cs = ividx._post_cs
+    t0 = time.perf_counter()
+    for _ in range(3):
+        qc, wb = ivfflat._adaptive_item_shape(
+            sel_np.reshape(-1), ividx._blk_occ, cs, ividx.WORK_QC,
+            ividx.WORK_SLOTS)
+        work = ivfflat._build_work_items(sel_np, ividx._blk_start,
+                                         ividx._blk_occ, qc, wb)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    eq, blkbase, wlen, qmap = (torch.as_tensor(a, device=dev) for a in work)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    ok = (ividx.postings_flat >= 0).view(-1, cs)
+    scan_args = (Metric.L2, ividx.post_values, ividx.post_vsq, ok, qf, eq,
+                 blkbase, wlen, k, qc, wb, cs)
+    scan_ms = cuda_ms(lambda: ivfflat._workitem_scan(*scan_args))
+    flat_d, flat_v = ivfflat._workitem_scan(*scan_args)
+    regroup_ms = cuda_ms(lambda: ivfflat._regroup_topk(flat_d, flat_v, qmap,
+                                                       k))
+    valid = table.valid
+
+    def batch():
+        ividx._probe_batch_inverted(qf, order, 0, 10, k, valid, None, False)
+        torch.cuda.synchronize()
+
+    batch()
+    t0 = time.perf_counter()
+    batch()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    scan_kernels, scan_kernel_ms, scan_top = profile_call(
+        lambda: ivfflat._workitem_probe_topk(*scan_args[:8], qmap, k=k, Qc=qc,
+                                             Wb=wb, cs=cs))
+    # bound: each real (query → list) edge scores the list's live rows;
+    # each probed list's slab (values and |v|²) is read once
+    lens = ividx.list_lens
+    edges = sel_np.reshape(-1)
+    probed = np.unique(edges)
+    scan_flops = 2.0 * float(lens[edges].sum()) * d
+    scan_bytes = (float(lens[probed].sum()) * (d * 4 + 4) + nq * d * 4
+                  + nq * k * 8)
+    scan_bound, scan_by = bound_ms(scan_bytes, scan_flops)
+    order_bound, order_by = bound_ms(4 * (nq * d + lists * d) + 8 * nq * 10,
+                                     2.0 * nq * lists * d)
+    order_kernels, _, _ = profile_call(lambda: ividx._probe_order(qf, 10))
+    # k-means assign at the sample's shape (50 · lists rows, bench.py's
+    # lane samples max(50 · lists, 10,000))
+    ns = min(max(50 * lists, 10000), table.count)
+    xs = table.data[:ns].float()
+    assign_ms = cuda_ms(lambda: ivf_kmeans._assign(xs, ividx.centroids, False))
+    assign_bound, assign_by = bound_ms(4 * (ns * d + lists * d) + 8 * ns,
+                                       2.0 * ns * lists * d)
+    assign_kernels, _, _ = profile_call(
+        lambda: ivf_kmeans._assign(xs, ividx.centroids, False))
+    emit({"phase": "ivf", "nvidia_smi": smi, "n": table.count,
+          "lists": lists, "seed": 1, "queries": nq, "build_s": build_s,
+          "build_phases": {key.split(".")[1]: v["total_s"]
+                           for key, v in timers.report().items()
+                           if key.startswith("ivfflat.")},
+          "kmeans_iters": ividx.kmeans_iters, "samples": ns,
+          "list_len_min_max": [int(lens.min()), int(lens.max())],
+          "post_values_bytes": ividx.post_values.numel()
+          * ividx.post_values.element_size(),
+          "sweep": sweep, "exhaustive": exhaustive,
+          "routes": {"queries": 256, "probes": 10, "atol": ATOL, "rtol": RTOL,
+                     "same_sets_frac": same_sets},
+          "batch1_ms": {"probes": 10, "searches": 200, "p50": p50,
+                        "p99": p99},
+          "probe_scan": {"probes": 10, "Qc": qc, "Wb": wb,
+                         "work_items": int((work[1] >= 0).sum()),
+                         "work_rows_padded": len(work[1]),
+                         "probe_order_ms": order_ms,
+                         "work_items_host_ms": host_ms,
+                         "upload_ms": upload_ms, "scan_ms": scan_ms,
+                         "regroup_ms": regroup_ms,
+                         "whole_batch_ms": batch_ms,
+                         "cuda_kernels": scan_kernels,
+                         "kernel_ms": scan_kernel_ms,
+                         "top_kernels_ms": scan_top,
+                         "gflop": scan_flops / 1e9,
+                         "gbytes": scan_bytes / 1e9,
+                         "bound_ms": scan_bound, "bound_by": scan_by},
+          "programs": [
+              {"name": "probe scan (_workitem_probe_topk)",
+               "ms": scan_ms + regroup_ms, "cuda_kernels": scan_kernels,
+               "calls_build": build_calls["probe_scan"],
+               "calls_searches": search_calls["probe_scan"],
+               "bound_ms": scan_bound, "bound_by": scan_by},
+              {"name": "probe order (_probe_order)", "ms": order_ms,
+               "cuda_kernels": order_kernels,
+               "calls_build": build_calls["probe_order"],
+               "calls_searches": search_calls["probe_order"],
+               "bound_ms": order_bound, "bound_by": order_by},
+              {"name": "k-means assign (ivf_kmeans._assign)",
+               "ms": assign_ms, "cuda_kernels": assign_kernels,
+               "calls_build": build_calls["kmeans_assign"],
+               "calls_searches": search_calls["kmeans_assign"],
+               "bound_ms": assign_bound, "bound_by": assign_by}]})
 
 
 def smi_line():
@@ -347,6 +575,12 @@ def main():
     if args.profile:
         for ef in (40, 100):
             emit(profile_search(idx, qs, k, ef))
+
+    # ---- 6. IVFFlat on the same table -------------------------------------
+    # release the HNSW slab cache first, as bench.py:615 does
+    idx._nbr_vals = None
+    torch.cuda.empty_cache()
+    ivf_phase(table, qs, gt_d, gt, k, smi)
 
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",

@@ -2,7 +2,8 @@
 
 The same engine as the JAX package (reference: pgvector/pgvector 0.8.6),
 on torch tensors: dense tables on the card (or a ``device`` the caller
-names, such as ``"cpu"``), exact search and HNSW, with the JAX package's
+names, such as ``"cpu"``), exact search, HNSW and IVFFlat, and checkpoints
+in the JAX package's directory format, with the JAX package's
 two Pallas kernels as hand-written CUDA kernels for Hopper (``csrc/``;
 built with ``nvcc`` at first use):
 
@@ -46,6 +47,7 @@ from .ops.metric import Metric  # noqa: E402
 from .store.table import DenseTable  # noqa: E402
 from .index.flat import FlatIndex  # noqa: E402
 from .index.hnsw import HNSWIndex  # noqa: E402
+from .index.ivfflat import IVFFlatIndex  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -54,6 +56,7 @@ __all__ = [
     "Metric",
     "FlatIndex",
     "HNSWIndex",
+    "IVFFlatIndex",
     "DenseTable",
     "Vector",
     "HalfVec",

@@ -1,11 +1,13 @@
 """Reference state → port state.
 
-``pgvector_tpu.io.checkpoint.save_hnsw`` writes an HNSW graph as numpy
-arrays plus a manifest (checkpoint.py:225-274).  :func:`hnsw_from_numpy`
-takes exactly those arrays and manifest fields and returns a port
-:class:`~pgvector_tpu_torch.index.hnsw.HNSWIndex` holding the same graph,
-so a graph built by either package is searched by the port; a checkpoint
-reader only has to load the files.
+``pgvector_tpu.io.checkpoint`` writes an index as numpy arrays plus a
+manifest: ``save_hnsw`` a graph (checkpoint.py:225-274), ``save_ivfflat``
+the trained centers and each row's list (:390-404).
+:func:`hnsw_from_numpy` and :func:`ivfflat_from_numpy` take exactly those
+arrays and manifest fields and return a port index holding the same
+state, so an index built by either package is searched by the port;
+:mod:`.checkpoint` only reads and writes the files.  A 16-bit array may
+come as a CPU ``torch.bfloat16`` tensor (numpy has no bfloat16).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..errors import DataException
+from ..errors import DataException, FeatureNotSupported
 from ..index.hnsw import HNSWIndex
+from ..index.ivfflat import IVFFlatIndex
 from ..ops.metric import Metric
 from ..store.table import DenseTable
 
@@ -26,6 +29,17 @@ HNSW_ARRAYS = ("nbr0", "nbr_up", "kept0", "kept_up", "up_slot", "levels",
 HNSW_FIELDS = ("m", "ef_construction", "entry", "entry_level", "n_elems",
                "n_upper", "nbr_up_width", "seed", "wave_size", "beam_expand",
                "backlink_mode")
+
+#: the arrays and manifest fields save_ivfflat writes
+IVFFLAT_ARRAYS = ("centroids_f32", "list_lens", "assignments")
+IVFFLAT_FIELDS = ("metric", "lists", "seed", "is_bit")
+
+
+def as_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A copy of ``a`` (numpy array, or tensor such as a bf16 one) on
+    ``device``; numpy arrays may be read-only views."""
+    t = a if torch.is_tensor(a) else torch.tensor(np.asarray(a))
+    return t.to(device=device, dtype=dtype, copy=True)
 
 
 def table_from_numpy(db: np.ndarray, valid: np.ndarray,
@@ -95,8 +109,37 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
     idx._alias_values = False
     idx.values = torch.zeros((idx.cap_e, table.dim), dtype=idx._val_dtype,
                              device=dev)
-    idx.values[:n] = torch.tensor(np.asarray(arrays["values0"])[:n],
-                                  device=dev).to(idx._val_dtype)
+    idx.values[:n] = as_tensor(arrays["values0"][:n], dev, idx._val_dtype)
     idx._dirty = True
     idx._nbr_vals = None
+    return idx
+
+
+def ivfflat_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
+                       meta: dict) -> IVFFlatIndex:
+    """An IVFFlatIndex over ``table`` with the trained centers and row
+    assignments of ``arrays`` (the ``save_ivfflat`` arrays) and ``meta``
+    (its manifest).  The postings and the posting-ordered value copy are
+    rebuilt from the assignments, as the reference's ``load_ivfflat``
+    does; the index lives on the table's device."""
+    missing = [a for a in IVFFLAT_ARRAYS if a not in arrays] + \
+        [f for f in IVFFLAT_FIELDS if f not in meta]
+    if missing:
+        raise DataException(f"ivfflat state lacks {', '.join(missing)}")
+    if meta["is_bit"]:
+        raise FeatureNotSupported("ivfflat over bit tables is not ported yet")
+    metric = meta["metric"]
+    metric = Metric[metric] if isinstance(metric, str) else metric
+    idx = IVFFlatIndex(table, metric, lists=int(meta["lists"]),
+                       seed=int(meta["seed"]), build=False)
+    centers = as_tensor(arrays["centroids_f32"], table.device, torch.float32)
+    if tuple(centers.shape) != (idx.lists, table.dim):
+        raise DataException(
+            f"ivfflat centers of shape {tuple(centers.shape)} do not fit "
+            f"{idx.lists} lists of {table.dim} dimensions")
+    idx.centroids = centers
+    idx._load_postings(np.asarray(arrays["assignments"], np.int64).copy())
+    if not np.array_equal(idx.list_lens,
+                          np.asarray(arrays["list_lens"], np.int64)):
+        raise DataException("ivfflat list_lens disagree with assignments")
     return idx

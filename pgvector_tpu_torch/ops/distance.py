@@ -10,7 +10,8 @@ Accumulation is f32, like the reference kernels (src/vector.c:560-735).
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 
@@ -31,6 +32,20 @@ def dot_precision() -> str:
     if torch.get_float32_matmul_precision() != name:
         torch.set_float32_matmul_precision(name)
     return name
+
+
+@contextlib.contextmanager
+def highest_precision() -> Iterator[None]:
+    """Full f32 matmuls inside the block whatever ``compute.matmul_precision``
+    says, as the reference's ``Precision.HIGHEST`` products (k-means
+    assignment: a reduced-precision product scrambles near-tie
+    assignments)."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def sq_norms(db: torch.Tensor) -> torch.Tensor:

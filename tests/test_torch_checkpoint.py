@@ -1,0 +1,221 @@
+"""Checkpoints shared by both packages, on the CPU.
+
+The port's ``io.checkpoint`` writes and reads the reference's directory
+format (manifest with magic, version and epoch; epoch-tagged ``.npy``
+files; bfloat16 arrays as uint16 under the ``.bf16`` tag).  Each way
+round, one package saves a dense table, a ``dedup=False`` HNSW graph or
+an IVFFlat index, and the other loads it and answers the same queries
+with the same ids apart from ties.  Checkpoints the port cannot hold
+raise FeatureNotSupported.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from pgvector_tpu.index.hnsw import HNSWIndex as JHNSW  # noqa: E402
+from pgvector_tpu.index.ivfflat import IVFFlatIndex as JIVF  # noqa: E402
+from pgvector_tpu.io import checkpoint as jck  # noqa: E402
+from pgvector_tpu.ops.metric import Metric as JMetric  # noqa: E402
+from pgvector_tpu.store.table import BitTable as JBitTable  # noqa: E402
+from pgvector_tpu.store.table import DenseTable as JTable  # noqa: E402
+from pgvector_tpu_torch import (  # noqa: E402
+    DataException, DenseTable, FeatureNotSupported, HNSWIndex, IVFFlatIndex,
+    Metric)
+from pgvector_tpu_torch.io import checkpoint as tck  # noqa: E402
+from torch_parity import assert_same_topk  # noqa: E402
+
+K = 10
+DTYPES = ["float32", "bfloat16", "float16"]
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(17)
+    db = rng.normal(size=(1200, 8)).astype(np.float32)
+    q = np.concatenate([db[:10] + 0.01,
+                        rng.normal(size=(10, 8)).astype(np.float32)])
+    return db, q
+
+
+@pytest.fixture
+def hnsw_env(monkeypatch):
+    """Both packages scan rows (no packed slab cache), visited set off."""
+    monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", "off")
+    monkeypatch.setenv("PGVECTOR_TPU_VISITED", "off")
+
+
+def _ref_table(db, dtype="float32", dead=()):
+    jt = JTable(db.shape[1], dtype=jnp.dtype(dtype))
+    jt.insert(db)
+    if len(dead):
+        jt.delete(np.asarray(dead))
+    return jt
+
+
+def _port_table(db, dtype="float32", dead=()):
+    tt = DenseTable(db.shape[1], dtype=getattr(torch, dtype), device="cpu")
+    tt.insert(db)
+    if len(dead):
+        tt.delete(np.asarray(dead))
+    return tt
+
+
+def _assert_same_table(jt, tt):
+    assert (tt.count, tt.dim) == (jt.count, jt.dim)
+    assert str(tt.dtype).replace("torch.", "") == str(np.dtype(jt.dtype))
+    np.testing.assert_array_equal(
+        tt.data[: tt.count].float().numpy(),
+        np.asarray(jt.data[: jt.count]).astype(np.float32))
+    np.testing.assert_array_equal(tt.valid[: tt.count].numpy(),
+                                  np.asarray(jt.valid[: jt.count]))
+
+
+# ------------------------------------------------------------ tables
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_table_reference_to_port(data, dtype, tmp_path):
+    db, _ = data
+    jt = _ref_table(db, dtype, dead=[3, 500, 1199])
+    jck.save_table(jt, str(tmp_path))
+    tt = tck.load_table(str(tmp_path), device="cpu")
+    _assert_same_table(jt, tt)
+    assert tt.device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_table_port_to_reference(data, dtype, tmp_path):
+    db, _ = data
+    tt = _port_table(db, dtype, dead=[0, 7, 800])
+    tck.save_table(tt, str(tmp_path))
+    if dtype == "bfloat16":
+        assert os.path.exists(tmp_path / "data.1.bf16.npy")
+    _assert_same_table(jck.load_table(str(tmp_path)), tt)
+
+
+# ------------------------------------------------------------ HNSW
+def _ref_hnsw(jt):
+    return JHNSW(jt, JMetric.L2, m=8, ef_construction=32, wave_size=256,
+                 beam_expand=4, dedup=False)
+
+
+def test_hnsw_reference_to_port(data, tmp_path, hnsw_env):
+    db, q = data
+    ref = _ref_hnsw(_ref_table(db))
+    jck.save_hnsw(ref, str(tmp_path))
+    port = tck.load_hnsw(_port_table(db), str(tmp_path))
+    assert port.n_elems == ref.n_elems and port.entry == ref.entry
+    np.testing.assert_array_equal(port.levels[: port.n_elems],
+                                  ref.levels[: ref.n_elems])
+    d0, r0 = ref.search(q, K, ef_search=40)
+    d1, r1 = port.search(q, K, ef_search=40)
+    assert_same_topk(d0, r0, d1, r1, atol=1e-6)
+    # the level draws go on where the saved index stopped
+    assert port._rng.random() == ref._rng.random()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hnsw_port_to_reference(data, dtype, tmp_path, hnsw_env):
+    """A bf16 table's graph stores bf16 values (the ``.bf16`` tag)."""
+    db, q = data
+    tt = _port_table(db, dtype)
+    port = HNSWIndex(tt, Metric.L2, m=8, ef_construction=32, wave_size=256,
+                     beam_expand=4, dedup=False)
+    tck.save_hnsw(port, str(tmp_path))
+    assert os.path.exists(tmp_path / ("values0.1.bf16.npy" if dtype ==
+                                      "bfloat16" else "values0.1.npy"))
+    ref = jck.load_hnsw(_ref_table(db, dtype), str(tmp_path))
+    assert ref.n_elems == port.n_elems and not ref.dedup
+    d0, r0 = ref.search(q, K, ef_search=40)
+    d1, r1 = port.search(q, K, ef_search=40)
+    assert_same_topk(d0, r0, d1, r1, atol=1e-6)
+    # and back: the port reads its own checkpoint
+    again = tck.load_hnsw(tt, str(tmp_path))
+    d2, r2 = again.search(q, K, ef_search=40)
+    assert_same_topk(d1, r1, d2, r2, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kw,what", [
+    ({"dedup": True}, "dedup"),
+    ({"dedup": False, "backlink_mode": "incremental"}, "incremental")])
+def test_hnsw_checkpoint_the_port_cannot_hold(data, kw, what, tmp_path):
+    db, _ = data
+    ref = JHNSW(_ref_table(db[:300]), JMetric.L2, m=8, ef_construction=32,
+                build=False, **kw)
+    jck.save_hnsw(ref, str(tmp_path))
+    with pytest.raises(FeatureNotSupported, match=what):
+        tck.load_hnsw(_port_table(db[:300]), str(tmp_path))
+
+
+# ------------------------------------------------------------ IVFFlat
+def test_ivfflat_reference_to_port(data, tmp_path):
+    db, q = data
+    jt = _ref_table(db, dead=np.arange(0, 1200, 9))
+    ref = JIVF(jt, JMetric.COSINE, lists=12, seed=1)
+    jck.save_ivfflat(ref, str(tmp_path))
+    port = tck.load_ivfflat(_port_table(db, dead=np.arange(0, 1200, 9)),
+                            str(tmp_path))
+    np.testing.assert_array_equal(port.postings, ref.postings)
+    for probes in (1, 4):
+        d0, r0 = ref.search(q, K, probes=probes)
+        d1, r1 = port.search(q, K, probes=probes)
+        assert_same_topk(d0, r0, d1, r1)
+
+
+def test_ivfflat_port_to_reference(data, tmp_path):
+    db, q = data
+    tt = _port_table(db)
+    port = IVFFlatIndex(tt, Metric.IP, lists=12, seed=1)
+    tck.save_ivfflat(port, str(tmp_path))
+    ref = jck.load_ivfflat(_ref_table(db), str(tmp_path))
+    np.testing.assert_array_equal(ref.postings, port.postings)
+    for probes in (1, 4):
+        d0, r0 = ref.search(q, K, probes=probes)
+        d1, r1 = port.search(q, K, probes=probes)
+        assert_same_topk(d0, r0, d1, r1)
+
+
+def test_bit_checkpoints_the_port_cannot_hold(tmp_path):
+    bits = np.random.default_rng(2).random((64, 32)) < 0.5
+    jt = JBitTable(32)
+    jt.insert(bits)
+    jck.save_table(jt, str(tmp_path / "t"))
+    with pytest.raises(FeatureNotSupported, match="bit table"):
+        tck.load_table(str(tmp_path / "t"), device="cpu")
+    ref = JIVF(jt, JMetric.HAMMING, lists=4, seed=1)
+    jck.save_ivfflat(ref, str(tmp_path / "i"))
+    with pytest.raises(FeatureNotSupported, match="bit table"):
+        tck.load_ivfflat(DenseTable(32, device="cpu"), str(tmp_path / "i"))
+
+
+# ------------------------------------------------------------ the format
+def test_saves_are_epoch_tagged_and_checked(data, tmp_path):
+    db, _ = data
+    tt = _port_table(db[:50])
+    path = str(tmp_path)
+    tck.save_table(tt, path)
+    tck.save_table(tt, path)
+    manifest = json.loads((tmp_path / "manifest.json").read_text())
+    assert (manifest["magic"], manifest["version"], manifest["epoch"]) == \
+        ("pgvector-tpu", 1, 2)
+    assert sorted(os.listdir(path)) == ["data.2.npy", "manifest.json",
+                                        "valid.2.npy"]
+    # an orphan of a crashed save is skipped over, then collected
+    np.save(tmp_path / "data.7.npy", np.zeros(1))
+    tck.save_table(tt, path)
+    assert sorted(os.listdir(path)) == ["data.8.npy", "manifest.json",
+                                        "valid.8.npy"]
+    with pytest.raises(DataException, match="expected an ivfflat"):
+        tck.load_ivfflat(tt, path)
+    (tmp_path / "manifest.json").write_text(
+        json.dumps(dict(manifest, magic="other")))
+    with pytest.raises(DataException, match="bad magic"):
+        tck.load_table(path, device="cpu")
+    with pytest.raises(DataException, match="no manifest"):
+        tck.load_table(str(tmp_path / "absent"), device="cpu")

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: K1 (fused top-k, 3xTF32) and K2
 (the fused packed hop, and its hop tail alone) against their plain PyTorch
-versions, and the HNSW scan on CUDA against the same scan on the CPU.
+versions; the HNSW and IVFFlat scans on CUDA against the same scans on
+the CPU; checkpoints loaded onto the card; k-means's generator on the
+table's device.
 Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
 first use) and skips elsewhere.
 
@@ -17,8 +19,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from pgvector_tpu_torch import DenseTable, FlatIndex, HNSWIndex, Metric  # noqa: E402
-from pgvector_tpu_torch.io.convert import hnsw_from_numpy  # noqa: E402
+from pgvector_tpu_torch import (  # noqa: E402
+    DenseTable, FlatIndex, HNSWIndex, IVFFlatIndex, Metric, config)
+from pgvector_tpu_torch.index import ivf_kmeans  # noqa: E402
+from pgvector_tpu_torch.io import checkpoint  # noqa: E402
+from pgvector_tpu_torch.io.convert import (  # noqa: E402
+    hnsw_from_numpy, ivfflat_from_numpy)
 from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
     fused_topk, fused_topk_plain)
 from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
@@ -238,3 +244,102 @@ def test_flat_and_hnsw_on_cuda_match_cpu(dev, monkeypatch):
     _, r_gpu = built.search(q, 10, ef_search=64)
     assert recall(r_gpu) >= recall(r_cpu) - 0.02, (recall(r_gpu),
                                                     recall(r_cpu))
+
+
+def _ivf_state(idx):
+    return ({"centroids_f32": idx.centroids.cpu().numpy(),
+             "list_lens": idx.list_lens, "assignments": idx.assignments},
+            {"metric": idx.metric.name, "lists": idx.lists, "seed": idx.seed,
+             "is_bit": False})
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
+def test_ivfflat_on_cuda_matches_cpu(dev, metric, monkeypatch):
+    """A CPU-trained index carried to the card answers both probe routes,
+    with deletes, a filter and an iterative scan, with the CPU's ids apart
+    from ties; one built on the card finds the neighbours as well."""
+    rng = np.random.default_rng(10)
+    db = rng.normal(size=(20000, 32)).astype(np.float32)
+    q = rng.normal(size=(300, 32)).astype(np.float32)
+    cpu_t, gpu_t = DenseTable(32, device="cpu"), DenseTable(32, device=dev)
+    cpu_t.insert(db)
+    gpu_t.insert(db)
+    cpu_t.delete(np.arange(0, 20000, 11))
+    gpu_t.delete(np.arange(0, 20000, 11))
+    cpu_idx = IVFFlatIndex(cpu_t, Metric[metric], lists=64, seed=1)
+    gpu_idx = ivfflat_from_numpy(gpu_t, *_ivf_state(cpu_idx))
+    assert gpu_idx.post_values.is_cuda and gpu_idx.centroids.is_cuda
+    fmask = np.ones(20000, bool)
+    fmask[::3] = False
+    gucs = {"ivfflat.iterative_scan": "relaxed_order",
+            "ivfflat.max_probes": 16}
+    for cov, path in ((10**9, "inverted"), (0, "blocks")):
+        monkeypatch.setattr(IVFFlatIndex, "INVERT_COVERAGE", cov)
+        for probes, f in ((1, None), (8, None), (8, fmask)):
+            with config.local(**gucs):
+                d0, r0 = cpu_idx.search(q, 10, probes=probes, filter_mask=f)
+                d1, r1 = gpu_idx.search(q, 10, probes=probes, filter_mask=f)
+            assert gpu_idx.last_path == path
+            assert_same_topk(d0, r0, d1, r1)
+    monkeypatch.setattr(IVFFlatIndex, "INVERT_COVERAGE", 32)
+    built = IVFFlatIndex(gpu_t, Metric[metric], lists=64, seed=1)
+    assert built.centroids.is_cuda and 1 < built.kmeans_iters <= 500
+    _, gt = FlatIndex(cpu_t, Metric[metric]).search(q, 10)
+
+    def recall(r):
+        return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(r, gt)])
+
+    r_cpu = recall(cpu_idx.search(q, 10, probes=8)[1])
+    r_gpu = recall(built.search(q, 10, probes=8)[1])
+    assert r_gpu >= r_cpu - 0.03, (r_gpu, r_cpu)
+
+
+def test_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    """Checkpoints written from CPU indexes load onto the card (the
+    default device) and answer as the CPU indexes do."""
+    rng = np.random.default_rng(12)
+    db = rng.normal(size=(6000, 16)).astype(np.float32)
+    q = rng.normal(size=(50, 16)).astype(np.float32)
+    cpu_t = DenseTable(16, device="cpu")
+    cpu_t.insert(db)
+    ivf = IVFFlatIndex(cpu_t, Metric.L2, lists=16, seed=1)
+    hnsw = HNSWIndex(cpu_t, Metric.L2, m=8, ef_construction=32,
+                     wave_size=512, beam_expand=4, dedup=False)
+    checkpoint.save_table(cpu_t, str(tmp_path / "t"))
+    checkpoint.save_ivfflat(ivf, str(tmp_path / "i"))
+    checkpoint.save_hnsw(hnsw, str(tmp_path / "h"))
+    gpu_t = checkpoint.load_table(str(tmp_path / "t"))
+    assert gpu_t.data.is_cuda
+    gpu_ivf = checkpoint.load_ivfflat(gpu_t, str(tmp_path / "i"))
+    assert gpu_ivf.post_values.is_cuda
+    d0, r0 = ivf.search(q, 10, probes=4)
+    d1, r1 = gpu_ivf.search(q, 10, probes=4)
+    assert_same_topk(d0, r0, d1, r1)
+    gpu_hnsw = checkpoint.load_hnsw(gpu_t, str(tmp_path / "h"))
+    assert gpu_hnsw.nbr0.is_cuda
+    h0, g0 = hnsw.search(q, 10, ef_search=64)
+    h1, g1 = gpu_hnsw.search(q, 10, ef_search=64)
+    assert_same_topk(h0, g0, h1, g1)
+    # the card's index saves as well as loads
+    checkpoint.save_ivfflat(gpu_ivf, str(tmp_path / "i2"))
+    again = checkpoint.load_ivfflat(cpu_t, str(tmp_path / "i2"))
+    np.testing.assert_array_equal(again.postings, ivf.postings)
+
+
+def test_kmeans_generator_on_the_table_device(dev):
+    """k-means draws from a generator on the data's device: the card's
+    k-means++ seeding repeats exactly for one seed, and the trained
+    centers stay on the card."""
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(size=(5000, 16)), dtype=torch.float32,
+                     device=dev)
+    g = ivf_kmeans.make_generator(3, dev)
+    assert g.device.type == "cuda"
+    a = ivf_kmeans._kmeanspp_init(x, ivf_kmeans.make_generator(3, dev), 32,
+                                  False)
+    b = ivf_kmeans._kmeanspp_init(x, ivf_kmeans.make_generator(3, dev), 32,
+                                  False)
+    assert a.is_cuda and torch.equal(a, b)
+    centers, iters = ivf_kmeans.train_centers(x, 32, seed=3)
+    assert centers.is_cuda and iters >= 1
+    assert torch.isfinite(centers).all()

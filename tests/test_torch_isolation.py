@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` made unimportable, importing
-``pgvector_tpu_torch`` and running a 2,000-row build and search on the CPU
-succeeds, and neither ``jax`` nor ``pgvector_tpu`` is loaded."""
+``pgvector_tpu_torch`` and running 2,000-row HNSW and IVFFlat builds and
+searches on the CPU, with a checkpoint round trip, succeeds, and neither
+``jax`` nor ``pgvector_tpu`` is loaded."""
 
 import os
 import subprocess
@@ -30,6 +31,21 @@ _SCRIPT = textwrap.dedent("""
     assert (r[:, 0] == np.arange(5)).all(), r
     d, r = P.FlatIndex(table, P.Metric.L2).search(db[:5], 3)
     assert (r[:, 0] == np.arange(5)).all(), r
+
+    import tempfile
+    from pgvector_tpu_torch.io import checkpoint
+    ivf = P.IVFFlatIndex(table, P.Metric.L2, lists=10, seed=1)
+    d, r = ivf.search(db[:5], 3, probes=10)
+    assert (r[:, 0] == np.arange(5)).all(), r
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_table(table, tmp + "/t")
+        checkpoint.save_ivfflat(ivf, tmp + "/i")
+        checkpoint.save_hnsw(idx, tmp + "/h")
+        t2 = checkpoint.load_table(tmp + "/t", device="cpu")
+        d2, r2 = checkpoint.load_ivfflat(t2, tmp + "/i").search(
+            db[:5], 3, probes=10)
+        assert (r2 == r).all() and np.allclose(d2, d), (r, r2)
+        assert checkpoint.load_hnsw(t2, tmp + "/h").n_elems == 2000
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "pgvector_tpu")
                     and sys.modules[m] is not None)
