@@ -1,6 +1,6 @@
 """HNSW index over a dense table — counterpart of
-``pgvector_tpu.index.hnsw`` (dense build in ``wholesale`` backlink mode,
-and search with ``hnsw.iterative_scan = off``).
+``pgvector_tpu.index.hnsw``: build, insert, heap-TID dedup, search with
+and without iterative scans, and the 4-pass vacuum.
 
 Graph layout, as in the reference:
 
@@ -11,34 +11,44 @@ Graph layout, as in the reference:
                   elements with level ≥ 1 (``up_slot`` maps element → row)
 - ``kept0`` / ``kept_up`` — sticky heuristic-kept flags per neighbor slot
 - ``levels``, ``elem_rows`` — host numpy bookkeeping (level per element,
-                  up to 10 heap TIDs per element)
+                  up to 10 heap TIDs per element; -1 level = free slot)
 
-Build is wave-parallel: batches of elements search the frozen graph
-together (``wave_search``), select neighbors together and merge backlinks
-grouped by target (``connect_level``).  Levels come from
-``np.random.default_rng(seed)`` exactly as the reference draws them, so
-both packages give every element the same level.
+Build and insert are wave-parallel: batches of elements search the frozen
+graph together (``wave_search``), select neighbors together and merge
+backlinks grouped by target — wholesale (``connect_level``) or, in
+``incremental`` mode, one source at a time (``merge_backlinks``).  Levels
+come from ``np.random.default_rng(seed)`` exactly as the reference draws
+them, and freed slots are reused in the reference's order, so both
+packages give every element the same slot and level.  With ``dedup``
+(the default), rows whose values are byte-equal share one element of up
+to 10 heap TIDs.
 
 Search is Algorithm 5 (hnswscan.c:25-56).  On CUDA tables the layer-0 scan
 reads an adjacency-packed copy of the neighbor values (f32 or bf16, sized
-to the card's memory) and runs each hop's tail in K2.
+to the card's memory) and runs each hop in K2.  ``hnsw.iterative_scan``
+resumes exhausted searches from their discarded candidates with a
+persistent visited set, on row gathers, as the reference does.
 
-Not ported yet: heap-TID dedup (``dedup=True``), inserts after the build,
-vacuum, iterative scans, the int8 and sketch packed tiers, and the bit and
-sparse kinds.
+Vacuum is the reference's 4 passes (hnswvacuum.c:777-797): drop dead TIDs,
+repair the lists that pointed at deleted elements by re-searching, check,
+then free the slots.
+
+Not ported yet: the int8 and sketch packed tiers, and the bit and sparse
+kinds.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import config
-from ..errors import DataException, FeatureNotSupported, InvalidParameterValue
+from ..errors import (DataException, FeatureNotSupported, InternalError,
+                      InvalidParameterValue)
 from ..ops.metric import Metric, stored_to_user
 from ..store.table import DenseTable
 from ..utils.stats import ScanStats
@@ -82,6 +92,7 @@ class HNSWIndex:
         beam_expand: int = 1,
         backlink_mode: str = "wholesale",
         dedup: bool = True,
+        notice_hook=None,
         progress=None,
         capacity: Optional[int] = None,
     ):
@@ -104,12 +115,6 @@ class HNSWIndex:
         if table.dim > cap:
             raise DataException(
                 f"column cannot have more than {cap} dimensions for hnsw index")
-        if backlink_mode != "wholesale":
-            raise FeatureNotSupported(
-                f'backlink_mode "{backlink_mode}" is not ported yet')
-        if dedup:
-            raise FeatureNotSupported(
-                "hnsw heap-TID dedup is not ported yet; pass dedup=False")
         self.table = table
         self.device = table.device
         self.metric = metric
@@ -119,12 +124,18 @@ class HNSWIndex:
         self.wave_size = wave_size
         #: candidates expanded per beam hop (1 = exact Algorithm 2 order)
         self.beam_expand = beam_expand
+        #: "wholesale" = one SelectNeighbors over old ∪ new per target per
+        #: wave; "incremental" = the reference's per-source one-eviction
+        #: fold (hnswutils.c:1181-1229)
         self.backlink_mode = backlink_mode
         self.dedup = dedup
+        self.notice_hook = notice_hook or (lambda msg: None)
         self.progress = progress or Progress()
         #: pg_stat_user_indexes / nsearches analogue (utils/stats.py)
         self.stats = ScanStats()
         self.ml = 1.0 / math.log(m)  # hnsw.h:130
+        self._mem_notice_fired = False
+        self._wave_eff = wave_size  # wave size after the memory budget
         self._rng = np.random.default_rng(seed)
         if capacity:
             self._init_graph(capacity=max(-(-capacity // 256) * 256, 1024))
@@ -177,6 +188,9 @@ class HNSWIndex:
         self.n_upper = 0
         self.entry: int = -1
         self.entry_level: int = -1
+        self.free_slots: List[int] = []
+        self.row_to_elem: Dict[int, int] = {}
+        self._dup_index: Dict[bytes, int] = {}
         self._up_slot_dev: Optional[torch.Tensor] = None
         self._elem_rows_dev: Optional[torch.Tensor] = None
         self._dirty = True
@@ -184,6 +198,9 @@ class HNSWIndex:
         #: dropped by any graph change)
         self._nbr_vals: Optional[torch.Tensor] = None
         self._last_scan_steps = 0
+        self._last_scan_rounds = 1
+        #: elements the last vacuum freed and re-linked
+        self.last_vacuum = {"deleted": 0, "repaired": 0}
 
     def _table_rows(self) -> int:
         return int(self.table.data.shape[0])
@@ -193,6 +210,21 @@ class HNSWIndex:
         replaces it)."""
         if self._alias_values:
             self.values = self.table.data
+
+    def _materialize_values(self) -> None:
+        """Break the table alias: gather every element its own value copy
+        by primary TID, so index-private rewrites (vacuum zeroing, slot
+        reuse) never reach the heap."""
+        if not self._alias_values:
+            return
+        self._refresh_alias()
+        rows = torch.as_tensor(np.maximum(self.elem_rows[:, 0], 0)
+                               .astype(np.int64), device=self.device)
+        live = torch.as_tensor(self.elem_rows[:, 0] >= 0, device=self.device)
+        self.values = torch.where(live[:, None], self.values[rows],
+                                  torch.zeros((), dtype=self.values.dtype,
+                                              device=self.device))
+        self._alias_values = False
 
     def _ensure_unroll_depth(self, depth: int) -> None:
         """Widen the upper-level arrays to ``depth`` levels."""
@@ -214,6 +246,12 @@ class HNSWIndex:
             self._elem_rows_dev = torch.as_tensor(self.elem_rows,
                                                   device=self.device)
             self._dirty = False
+
+    def _sync(self) -> None:
+        """End a timed phase on the device's clock: phase timers read the
+        host clock, and CUDA work is asynchronous."""
+        if timers.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ----------------------------------------------------------- index values
     def _form_values(self, rows: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
@@ -240,6 +278,32 @@ class HNSWIndex:
             qs = qs / torch.clamp(norms, min=1e-30)
         return qs
 
+    # ------------------------------------------------------- neighbor closures
+    def _neighbors_of_level(self, elems: torch.Tensor, level: int) -> torch.Tensor:
+        """A batch of elements' neighbor lists at ``level`` (2m wide at
+        level 0, m above)."""
+        safe = K._long(elems)
+        if level == 0:
+            out = self.nbr0[safe]
+        else:
+            self._sync_device_meta()
+            slot = self._up_slot_dev[safe]
+            out = self.nbr_up[K._long(slot), level - 1]
+            out = torch.where(slot[:, None] >= 0, out, -1)
+        return torch.where(elems[:, None] >= 0, out, -1)
+
+    def _kept_of_level(self, elems: torch.Tensor, level: int) -> torch.Tensor:
+        """The sticky kept flags matching _neighbors_of_level."""
+        safe = K._long(elems)
+        if level == 0:
+            out = self.kept0[safe]
+        else:
+            self._sync_device_meta()
+            slot = self._up_slot_dev[safe]
+            out = self.kept_up[K._long(slot), level - 1]
+            out = out & (slot[:, None] >= 0)
+        return out & (elems[:, None] >= 0)
+
     # ------------------------------------------------------------------ build
     def build(self) -> None:
         t = self.table
@@ -253,11 +317,20 @@ class HNSWIndex:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
+    def insert(self, rows) -> None:
+        """aminsert analogue (hnswinsert.c:695-743) for a batch of new rows."""
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        self._insert_rows(rows)
+
+    # ------------------------------------------------------- core insert path
     def _insert_rows(self, rows: np.ndarray) -> None:
-        """Insert table rows as new elements (dedup=False: one element per
-        row), then run the wave schedule."""
+        """Insert table rows: duplicates attach heap TIDs, the rest become
+        new elements (in freed slots first), then the wave schedule."""
         self._refresh_alias()
-        if self._alias_values:
+        # without dedup and with values aliasing the heap, forming values
+        # would copy rows only for _write_values to discard them
+        lazy = self._alias_values and not self.dedup
+        if lazy:
             values, keep = None, np.ones(len(rows), bool)
         else:
             values, keep = self._form_values(rows)
@@ -267,38 +340,87 @@ class HNSWIndex:
                                                 device=self.device)]
         if len(rows) == 0:
             return
-        elems = np.asarray(self._alloc_slots(len(rows)), np.int64)
+
+        # duplicate merge (InsertTupleInMemory's duplicate path,
+        # hnswbuild.c:342-364; FindDuplicateOnDisk, hnswinsert.c:641-663):
+        # duplicates of existing elements attach a heap TID; duplicates
+        # within the batch group into one new element (10 TIDs at most)
+        new_rows: List[List[int]] = []  # rows per new element
+        new_val_pos: List[int] = []
+        new_keys: List[Optional[bytes]] = []
+        if self.dedup:
+            with timers.phase("hnsw.dedup_keys"):
+                keys = _dup_keys(_host_array(values))
+                batch_map: Dict[bytes, int] = {}
+                for i, row in enumerate(rows.tolist()):
+                    key = keys[i]
+                    e = self._dup_index.get(key)
+                    if e is not None and self._attach_tid(e, row):
+                        continue
+                    j = batch_map.get(key)
+                    if j is not None and len(new_rows[j]) < HEAPTIDS:
+                        new_rows[j].append(row)
+                        continue
+                    batch_map[key] = len(new_rows)
+                    new_rows.append([row])
+                    new_val_pos.append(i)
+                    new_keys.append(key)
+        else:
+            new_rows = [[int(r)] for r in rows]
+            new_val_pos = list(range(len(rows)))
+            new_keys = [None] * len(rows)
+        if not new_rows:
+            return
+        if new_val_pos != list(range(len(rows))):
+            # only when dedup dropped or merged rows: the identity gather
+            # would copy the whole value block for nothing
+            values = values[torch.as_tensor(np.asarray(new_val_pos, np.int64),
+                                            device=self.device)]
+
+        elems = np.asarray(self._alloc_slots(len(new_rows)), np.int64)
         # levels = floor(-ln(U)·ml), drawn exactly as the reference draws
         # them (hnsw.py:540-543)
         lv = np.minimum(
-            np.floor(-np.log(self._rng.random(len(rows))) * self.ml).astype(np.int32),
+            np.floor(-np.log(self._rng.random(len(new_rows))) * self.ml).astype(np.int32),
             self._l_unroll,
         )
         self.levels[elems] = lv
         self.elem_rows[elems, :] = -1
-        self.elem_rows[elems, 0] = rows
+        lens = np.fromiter((len(g) for g in new_rows), np.int64, len(new_rows))
+        if int(lens.max()) == 1:
+            rows_flat = np.fromiter((g[0] for g in new_rows), np.int64,
+                                    len(new_rows))
+            self.elem_rows[elems, 0] = rows_flat
+            self.row_to_elem.update(zip(rows_flat.tolist(), elems.tolist()))
+        else:
+            for j, e in enumerate(elems.tolist()):
+                for t, row in enumerate(new_rows[j]):
+                    self.elem_rows[e, t] = row
+                    self.row_to_elem[row] = e
+        if self.dedup:
+            self._dup_index.update(zip(new_keys, elems.tolist()))
         need_up = (lv >= 1) & (self.up_slot[elems] < 0)
         if need_up.any():
             self.up_slot[elems[need_up]] = self._alloc_upper_bulk(int(need_up.sum()))
         self._dirty = True
         self._nbr_vals = None  # the graph is about to change
         if values is None:
-            if not np.array_equal(rows, elems):
-                # rows that do not map 1:1 to elements (deleted rows) break
-                # the alias: gather every element its own copy by TID
-                self._alias_values = False
-                live = np.flatnonzero(self.elem_rows[:, 0] >= 0)
-                src = torch.as_tensor(self.elem_rows[live, 0].astype(np.int64),
-                                      device=self.device)
-                self.values = torch.zeros(
-                    (self.cap_e, self.table.dim), dtype=self._val_dtype,
-                    device=self.device)
-                self.values[torch.as_tensor(live, device=self.device)] = \
-                    self.table.data[src].to(self._val_dtype)
+            if np.array_equal(self.elem_rows[elems, 0], elems):
+                self._refresh_alias()  # the heap rows are these values
+            elif self._alias_values:
+                # a non-identity mapping (freed slots reused): one private
+                # gather by TID covers every element, this batch included
+                self._materialize_values()
+            else:
+                # _grow() during _alloc_slots broke the alias: the padded
+                # copy holds row e at slot e, so write this batch's values
+                vals, _ = self._form_values(self.elem_rows[elems, 0]
+                                            .astype(np.int64))
+                self._write_values(elems, vals)
         else:
-            # in place into the index's own value tensor
-            self.values[torch.as_tensor(elems, device=self.device)] = values
+            self._write_values(elems, values)
             del values
+
         wave_size = self._effective_wave_size()
         for p in range(0, len(elems), wave_size):
             with timers.phase("hnsw.wave"):
@@ -308,7 +430,7 @@ class HNSWIndex:
     def _wave_bytes(self, b: int) -> int:
         """Transient device bytes of one insert wave of ``b`` elements: the
         beam pools, the pairwise select block and the per-level output
-        pools (the visited table of the reference is mode ``off`` here)."""
+        pools (builds run the visited set off, so no table)."""
         ef = self.ef_construction
         c = ef + min(self.m, b)  # beam pool + intra-wave candidates
         rep = 4 * self.table.dim
@@ -318,19 +440,48 @@ class HNSWIndex:
         return b * per_q
 
     def _effective_wave_size(self) -> int:
-        """Shrink the wave until its working set fits maintenance_work_mem
-        (hnswbuild.c:530-549)."""
+        """Shrink the wave until its working set fits maintenance_work_mem;
+        NOTICE once per index when degraded (hnswbuild.c:530-549)."""
         budget = int(config.get("maintenance_work_mem"))
-        wave = self.wave_size
+        start = wave = self.wave_size
         while wave > 8 and self._wave_bytes(wave) > budget:
             wave //= 2
+        self._wave_eff = wave
+        if wave < start and not self._mem_notice_fired:
+            self._mem_notice_fired = True
+            self.notice_hook(
+                "hnsw build wave no longer fits into maintenance_work_mem\n"
+                f"DETAIL:  Reduced insert wave size from {start} to "
+                f"{wave}. Building will take significantly more time.\n"
+                "HINT:  Increase maintenance_work_mem to speed up builds."
+            )
         return wave
 
-    def _alloc_slots(self, n: int) -> np.ndarray:
-        while self.n_elems + n > self.cap_e:
-            self._grow()
-        out = np.arange(self.n_elems, self.n_elems + n, dtype=np.int64)
-        self.n_elems += n
+    def _attach_tid(self, elem: int, row: int) -> bool:
+        """AddDuplicateOnDisk (hnswinsert.c:585-636): append a heap TID to
+        an existing element, 10 at most."""
+        if self.levels[elem] < 0:
+            return False
+        slots = self.elem_rows[elem]
+        free = np.flatnonzero(slots < 0)
+        if not len(free):
+            return False
+        slots[free[0]] = row
+        self.row_to_elem[row] = elem
+        self._dirty = True
+        return True
+
+    def _alloc_slots(self, n: int) -> List[int]:
+        """Freed slots first, last freed first (the reference's order, so
+        both packages put the same element in the same slot), then new
+        slots past n_elems."""
+        out = [self.free_slots.pop() for _ in range(min(len(self.free_slots), n))]
+        rem = n - len(out)
+        if rem:
+            while self.n_elems + rem > self.cap_e:
+                self._grow()
+            out.extend(range(self.n_elems, self.n_elems + rem))
+            self.n_elems += rem
         return out
 
     def _alloc_upper_bulk(self, n: int) -> np.ndarray:
@@ -363,8 +514,19 @@ class HNSWIndex:
         self.cap_e = new_cap
         self._dirty = True
 
+    def _write_values(self, elems, values: torch.Tensor) -> None:
+        e_np = np.asarray(elems, np.int64)
+        if self._alias_values:
+            if np.array_equal(self.elem_rows[e_np, 0], e_np):
+                # identity alias: the heap rows are these elements' values
+                self._refresh_alias()
+                return
+            self._materialize_values()
+        self.values[torch.as_tensor(e_np, device=self.device)] = values
+
     # ------------------------------------------------------------ wave insert
-    def _search_wave_raw(self, elems: np.ndarray, lv: np.ndarray):
+    def _search_wave_raw(self, elems: np.ndarray, lv: np.ndarray,
+                         exclude_self: bool = False):
         """Batched Algorithm 1 search for a wave, padded to a power of two
         (at most the wave size) as in the reference.  Returns the stacked
         per-level pools (L+1, nq_pad, ef), nq and nq_pad."""
@@ -381,14 +543,24 @@ class HNSWIndex:
             self.metric, self.values, self.nbr0, self.nbr_up,
             self._up_slot_dev, qs, lv_pad.astype(np.int32), self.entry,
             self.entry_level, ef=self.ef_construction,
-            l_unroll=self._l_unroll, expand=self.beam_expand)
+            l_unroll=self._l_unroll, expand=self.beam_expand,
+            self_ids=e_dev if exclude_self else None)
         return out_d, out_i, nq, nq_pad
 
-    def _insert_wave_fused(self, elems: np.ndarray, lv: np.ndarray) -> None:
+    def _search_wave(self, elems: np.ndarray, lv: np.ndarray,
+                     exclude_self: bool):
+        """The wave's pools by level, from the top level it reaches down."""
+        out_d, out_i, nq, _ = self._search_wave_raw(elems, lv, exclude_self)
+        return {lc: (out_d[lc, :nq], out_i[lc, :nq])
+                for lc in range(min(self.entry_level, int(lv.max())), -1, -1)}
+
+    def _insert_wave_fused(self, elems: np.ndarray, lv: np.ndarray,
+                           exclude_self: bool = False) -> None:
         """Search + connect: one wave search, then one connect pass per
         level from the top eligible level down."""
         with timers.phase("hnsw.wave.search"):
-            out_d, out_i, nq, nq_pad = self._search_wave_raw(elems, lv)
+            out_d, out_i, nq, nq_pad = self._search_wave_raw(elems, lv,
+                                                             exclude_self)
         with timers.phase("hnsw.wave.connect"):
             dev = self.device
             e_conn = np.concatenate(
@@ -441,36 +613,183 @@ class HNSWIndex:
             elems, lv = elems[1:], lv[1:]
             if len(elems) == 0:
                 return
-        self._insert_wave_fused(elems, lv)
+        if self.backlink_mode == "incremental":
+            with timers.phase("hnsw.wave.search"):
+                pools = self._search_wave(elems, lv, exclude_self=False)
+            with timers.phase("hnsw.wave.connect"):
+                self._connect_from_pools(elems, lv, pools)
+        else:
+            self._insert_wave_fused(elems, lv)
         wave_max = int(lv.max()) if len(lv) else -1
         if wave_max > self.entry_level:
             j = int(np.argmax(lv))
             self.entry = int(elems[j])
             self.entry_level = wave_max
 
+    def _connect_from_pools(self, elems: np.ndarray, lv: np.ndarray, pools) -> None:
+        """Connect a searched wave level by level: intra-wave candidates,
+        SelectNeighbors in fixed blocks, own-list writes, then backlinks
+        folded into each target (incremental mode)."""
+        dev = self.device
+        e_dev = torch.as_tensor(elems.astype(np.int32), device=dev)
+        for lc in sorted(pools.keys(), reverse=True):
+            lm = 2 * self.m if lc == 0 else self.m
+            mask_q = lv >= lc
+            if not mask_q.any():
+                continue
+            q_sel = np.flatnonzero(mask_q)
+            pd, pi = pools[lc]
+            # intra-wave candidates: wave members never see each other in
+            # their frozen-graph searches; fold the nearest wave-mates at
+            # this level into the pools
+            if len(elems) > 1:
+                intra_d, intra_i = K.intra_wave_candidates(
+                    self.metric, self.values, e_dev,
+                    torch.as_tensor(lv >= lc, device=dev),
+                    min(self.m, len(elems)))
+                pd = torch.cat([pd, intra_d], dim=1)
+                pi = torch.cat([pi, intra_i], dim=1)
+            block = _round_pow2(self._wave_eff)
+            for start in range(0, len(q_sel), block):
+                chunk = q_sel[start: start + block]
+                pad = block - len(chunk)
+                idx_dev = torch.as_tensor(np.concatenate(
+                    [chunk, np.zeros(pad, chunk.dtype)]).astype(np.int64),
+                    device=dev)
+                pd_c, pi_c = pd[idx_dev], pi[idx_dev]
+                if pad:
+                    mask = (torch.arange(block, device=dev) < len(chunk))[:, None]
+                    pi_c = torch.where(mask, pi_c, -1)
+                    pd_c = torch.where(mask, pd_c, torch.inf)
+                with timers.phase("hnsw.wave.select"):
+                    sel_elems, sel_kept = self._select_for(pd_c, pi_c, lm)
+                    sel_elems = sel_elems[: len(chunk)]
+                    sel_kept = sel_kept[: len(chunk)]
+                    self._write_own_lists(elems[chunk], lc, sel_elems, sel_kept)
+                with timers.phase("hnsw.wave.sel_sync"):
+                    sel_host = sel_elems.cpu().numpy()
+                with timers.phase("hnsw.wave.backlink"):
+                    self._apply_backlinks(elems[chunk], lc, sel_host, lm)
+
+    def _select_for(self, pool_d, pool_i, lm: int):
+        """SelectNeighbors over each base element's candidate pool."""
+        return K.select_connections(self.metric, self.values, pool_d, pool_i,
+                                    lm)
+
+    def _write_own_lists(self, elems: np.ndarray, level: int,
+                         sel: torch.Tensor, kept: torch.Tensor) -> None:
+        e = torch.as_tensor(elems.astype(np.int64), device=self.device)
+        if level == 0:
+            self.nbr0[e] = sel
+            self.kept0[e] = kept
+        else:
+            slots = torch.as_tensor(self.up_slot[elems].astype(np.int64),
+                                    device=self.device)
+            self.nbr_up[slots, level - 1] = sel
+            self.kept_up[slots, level - 1] = kept
+
+    def _apply_backlinks(self, src_elems: np.ndarray, level: int,
+                         sel: np.ndarray, lm: int) -> None:
+        """HnswUpdateConnection for every (new element → neighbor) edge:
+        group by target with one stable argsort over the flattened edges,
+        then fold up to 8 new sources a target per round
+        (hnswutils.c:1181-1229)."""
+        flat_t = np.asarray(sel).reshape(-1)
+        flat_s = np.repeat(src_elems.astype(np.int32), sel.shape[1])
+        mask = flat_t >= 0
+        if not mask.any():
+            return
+        order = np.argsort(flat_t[mask], kind="stable")
+        ts = flat_t[mask][order]
+        ss = flat_s[mask][order]
+        uniq, starts, counts = np.unique(ts, return_index=True, return_counts=True)
+        SMAX = 8  # new sources folded per round; overflow runs extra rounds
+        offs = np.arange(SMAX)
+        rnd = 0
+        while True:
+            has = counts > rnd * SMAX
+            if not has.any():
+                break
+            t_r = uniq[has].astype(np.int32)
+            st = starts[has] + rnd * SMAX
+            n_r = np.minimum(counts[has] - rnd * SMAX, SMAX)
+            idx = st[:, None] + offs[None, :]
+            ok = offs[None, :] < n_r[:, None]
+            new_src = np.where(ok, ss[np.minimum(idx, len(ss) - 1)], -1).astype(np.int32)
+            self._backlink_round(t_r, new_src, level, lm, SMAX)
+            rnd += 1
+
+    def _backlink_round(self, targets: np.ndarray, src_mat: np.ndarray,
+                        level: int, lm: int, smax: int) -> None:
+        """One round of backlink merges, in fixed blocks of targets."""
+        dev = self.device
+        block = _round_pow2(max(self._wave_eff, 1))
+        merge = (K.merge_backlinks if self.backlink_mode == "incremental"
+                 else K.merge_backlinks_wholesale)
+        for start in range(0, len(targets), block):
+            t_chunk = targets[start: start + block]
+            pad = block - len(t_chunk)
+            new_src = np.concatenate(
+                [src_mat[start: start + block],
+                 np.full((pad, smax), -1, np.int32)])
+            t_dev = torch.as_tensor(
+                np.concatenate([t_chunk, np.full(pad, -1, np.int32)]),
+                device=dev)
+            old = self._neighbors_of_level(t_dev, level)  # (T, lm)
+            old_kept = self._kept_of_level(t_dev, level)
+            new_lists, new_kept = merge(
+                self.metric, self.values, old, old_kept,
+                torch.as_tensor(new_src, device=dev), t_dev, lm)
+            n = len(t_chunk)
+            if level == 0:
+                real = torch.as_tensor(t_chunk.astype(np.int64), device=dev)
+                self.nbr0[real] = new_lists[:n]
+                self.kept0[real] = new_kept[:n]
+            else:
+                slots = self.up_slot[t_chunk].astype(np.int64)
+                ok = slots >= 0
+                s_dev = torch.as_tensor(slots[ok], device=dev)
+                ok_dev = torch.as_tensor(ok, device=dev)
+                self.nbr_up[s_dev, level - 1] = new_lists[:n][ok_dev]
+                self.kept_up[s_dev, level - 1] = new_kept[:n][ok_dev]
+
     # ------------------------------------------------------------------ search
     def search(self, q, k: int, ef_search: Optional[int] = None,
                filter_mask: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Algorithm 5 scan (hnswscan.c).  Returns (operator distances,
-        row ids) as numpy arrays, -1/inf padded; the result count is capped
-        at ef_search (README.md:933-935)."""
+        row ids) as numpy arrays, -1/inf padded.  Without iterative scans
+        the result count is capped at ef_search (README.md:933-935); with
+        ``hnsw.iterative_scan`` on, exhausted searches resume from the best
+        discarded candidates with a persistent visited set
+        (ResumeScanItems, hnswscan.c:61-87) until k results pass the
+        filter, ``hnsw.max_scan_tuples`` is reached, or the memory cap
+        binds."""
         ef = int(config.validate("hnsw.ef_search", ef_search)
                  if ef_search is not None else config.get("hnsw.ef_search"))
-        if config.get("hnsw.iterative_scan") != "off":
-            raise FeatureNotSupported("hnsw.iterative_scan is not ported yet")
+        mode = config.get("hnsw.iterative_scan")
         qs = self._query_rep(q)
         nq = qs.shape[0]
         if self.entry < 0:
             return (np.full((nq, k), np.inf, np.float32),
-                    np.full((nq, k), -1, np.int32))
+                    np.full((nq, k), -1, np.int64))
         fmask = (torch.as_tensor(np.asarray(filter_mask, dtype=bool),
                                  device=self.device)
                  if filter_mask is not None else None)
-        d, r = self._search_once(qs, k, ef, fmask)
-        d, r = d.cpu().numpy(), r.cpu().numpy()
-        self.stats.count(nq, r)
+        if mode == "off":
+            d, r = self._search_once(qs, k, ef, fmask)
+            d, r = d.cpu().numpy(), r.cpu().numpy()
+            self.stats.count(nq, r)
+            return d, r
+        d, r = self._search_iterative(qs, k, ef, fmask, mode)
+        self.stats.count(nq, r, rounds=self._last_scan_rounds)
         return d, r
+
+    def _scan_bytes_per_query(self, ef: int) -> int:
+        """Device bytes of one query's scan state at ``ef``: pool slots ×
+        (vector copy + distance + id + expanded flag) plus the visited
+        table."""
+        return ef * (4 * self.table.dim + 9) + 4 * K.visited_capacity(ef)
 
     def _packed_plan(self):
         """Layer-0 value packing dtype (or None for row gathers), from
@@ -533,6 +852,263 @@ class HNSWIndex:
         #: layer-0 hop count of the last scan
         self._last_scan_steps = steps
         return stored_to_user(self.metric, d), r
+
+    def _search_iterative(self, qs, k: int, ef: int, fmask, mode: str):
+        """The iterative scan: the first search keeps a discarded pool;
+        each resume re-seeds layer 0 from it with the visited set intact
+        (hnswscan.c:61-87).  ``strict_order`` suppresses results whose
+        distance regressed below an earlier batch's maximum (the
+        previousDistance filter, hnswscan.c:313-319); relaxed keeps them.
+        Stops at hnsw.max_scan_tuples, the work_mem × scan_mem_multiplier
+        memory cap (hnswscan.c:149-156, 255-266) or 64 batches."""
+        self._sync_device_meta()
+        nq = qs.shape[0]
+        max_tuples = int(config.get("hnsw.max_scan_tuples"))
+        mem_budget = (config.get("work_mem")
+                      * config.get("hnsw.scan_mem_multiplier"))
+        dk = max(4 * ef, 64)
+        graph = (self.metric, self.values, self.nbr0, self.nbr_up,
+                 self._up_slot_dev)
+        pool_d, pool_i, visited, disc_d, disc_i, sc_dev = K.query_search_first(
+            *graph, qs, self.entry, self.entry_level, ef=ef, dk=dk,
+            expand=self.beam_expand)
+        heap = (self._elem_rows_dev, self.table.valid, fmask)
+        acc_d: List[np.ndarray] = []
+        acc_r: List[np.ndarray] = []
+        prev_max = np.full(nq, -np.inf, np.float32)
+        scanned = np.zeros(nq, np.int64)
+        batches = 0
+        while True:
+            batches += 1
+            d_dev, r_dev = K._expand_topk(pool_d, pool_i, *heap, ef,
+                                          HEAPTIDS)
+            d = self._user_dist(d_dev).cpu().numpy()
+            r = r_dev.cpu().numpy()
+            # meter every scored candidate (the so->tuples contract of
+            # hnsw.max_scan_tuples, hnswscan.c:255-266)
+            scanned += sc_dev.cpu().numpy().astype(np.int64)
+            if mode == "strict_order" and batches > 1:
+                bad = d < prev_max[:, None]
+                d = np.where(bad, np.inf, d)
+                r = np.where(bad, -1, r)
+            finite = np.isfinite(d)
+            batch_max = np.where(finite.any(axis=1),
+                                 np.max(np.where(finite, d, -np.inf), axis=1),
+                                 prev_max)
+            prev_max = np.maximum(prev_max, batch_max.astype(np.float32))
+            acc_d.append(d)
+            acc_r.append(r)
+            found = _count_found(acc_r, nq)
+            disc_live = (~torch.all(torch.isinf(disc_d), dim=1)).cpu().numpy()
+            active = (found < k) & (scanned < max_tuples) & disc_live
+            state_bytes = (self._scan_bytes_per_query(ef)
+                           + 4 * dk + batches * ef * 16)
+            if not active.any() or state_bytes > mem_budget or batches >= 64:
+                # the reference's "return remaining tuples" branch
+                # (hnswscan.c:258-266): when a cap binds with fewer than k
+                # results, emit from the (distance-sorted) discarded pool
+                if ((found < k) & disc_live).any():
+                    dd_dev, dr_dev = K._expand_topk(
+                        disc_d, disc_i, *heap, min(dk, 4 * ef), HEAPTIDS)
+                    dd = self._user_dist(dd_dev).cpu().numpy()
+                    dr = dr_dev.cpu().numpy()
+                    if mode == "strict_order":
+                        bad = dd < prev_max[:, None]
+                        dd = np.where(bad, np.inf, dd)
+                        dr = np.where(bad, -1, dr)
+                    acc_d.append(dd)
+                    acc_r.append(dr)
+                break
+            pool_d, pool_i, visited, disc_d, disc_i, sc_dev = \
+                K.query_search_resume(*graph, qs, visited, disc_d, disc_i,
+                                      ef=ef, expand=self.beam_expand)
+        #: iterative resume rounds of the last scan — stats.searches input
+        self._last_scan_rounds = batches
+        #: candidates each query of the last iterative scan scored
+        self._last_scan_scanned = scanned
+        all_d = np.concatenate(acc_d, axis=1)
+        all_r = np.concatenate(acc_r, axis=1)
+        kc = min(k, all_r.shape[1])
+        m_d, m_r = K.merge_scan_batches(
+            torch.as_tensor(all_d, dtype=torch.float32, device=self.device),
+            torch.as_tensor(all_r, device=self.device), kc)
+        out_d = np.full((nq, k), np.inf, np.float32)
+        out_r = np.full((nq, k), -1, np.int64)
+        out_d[:, :kc] = m_d.cpu().numpy()
+        out_r[:, :kc] = m_r.cpu().numpy()
+        return out_d, out_r
+
+    def _user_dist(self, stored: torch.Tensor) -> torch.Tensor:
+        return stored_to_user(self.metric, stored)
+
+    # ------------------------------------------------------------------ vacuum
+    def vacuum(self) -> None:
+        """hnswbulkdelete's 4 passes (hnswvacuum.c:777-797), wave-batched.
+        Each pass is a ``timers`` phase (``hnsw.vacuum.*``); ``last_vacuum``
+        counts the elements freed and re-linked."""
+        self._nbr_vals = None  # repair rewrites neighbor lists
+        self.last_vacuum = {"deleted": 0, "repaired": 0}
+        dev = self.device
+        # pass 1: RemoveHeapTids (hnswvacuum.c:35-173): drop dead TIDs and
+        # left-compact each element's TID row
+        with timers.phase("hnsw.vacuum.remove_tids"):
+            valid_rows = self.table.valid.cpu().numpy()
+            live_elems = np.flatnonzero(self.levels >= 0)
+            er = self.elem_rows[live_elems]  # (L, 10)
+            keep = (er >= 0) & valid_rows[np.maximum(er, 0)]
+            order = np.argsort(~keep, axis=1, kind="stable")
+            self.elem_rows[live_elems] = np.take_along_axis(
+                np.where(keep, er, -1), order, axis=1)
+            self._dirty = True
+            deleting = live_elems[~keep.any(axis=1)]
+        if not len(deleting):
+            return
+        dead_mask = np.zeros(self.cap_e, bool)
+        dead_mask[deleting] = True
+        dead_dev = torch.as_tensor(dead_mask, device=dev)
+
+        def refs_dead(nb):
+            return dead_dev[K._long(nb)] & (nb >= 0)
+
+        # pass 2: RepairGraph (hnswvacuum.c:378-502)
+        with timers.phase("hnsw.vacuum.strip"):
+            # which live elements reference a deleting element at any layer,
+            # before the strip: the NeedsUpdated condition
+            # (hnswvacuum.c:178-220 checks every layer)
+            n = self.n_elems
+            ref_any = refs_dead(self.nbr0).any(dim=1)[:n].cpu().numpy()
+            ref_up_slot = refs_dead(self.nbr_up).any(dim=2).any(dim=1) \
+                .cpu().numpy()
+            ups = self.up_slot[:n]
+            has_up = ups >= 0
+            ref_any[has_up] |= ref_up_slot[ups[has_up]]
+            # entry point replacement (RepairGraphEntryPoint :279-373)
+            if self.entry >= 0 and dead_mask[self.entry]:
+                survivors = live_elems[~dead_mask[live_elems]]
+                if len(survivors):
+                    j = int(np.argmax(self.levels[survivors]))
+                    self.entry = int(survivors[j])
+                    self.entry_level = int(self.levels[survivors[j]])
+                else:
+                    self.entry, self.entry_level = -1, -1
+            # strip dead ids from every neighbor list
+            _strip_dead(self.nbr0, self.kept0, dead_dev)
+            _strip_dead(self.nbr_up, self.kept_up, dead_dev)
+            self._sync()
+        # re-link affected elements: NeedsUpdated = any layer's list
+        # referenced a deleting element, or the level-0 list is not full
+        # (:211-215).  The repair re-searches each element's whole level
+        # range, so upper-level lists are repaired too.
+        with timers.phase("hnsw.vacuum.repair"):
+            if self.entry >= 0:
+                lens = (self.nbr0[:n] >= 0).sum(dim=1).cpu().numpy()
+                affected = np.flatnonzero(
+                    (self.levels[:n] >= 0) & ~dead_mask[:n]
+                    & (ref_any | (lens < 2 * self.m)))
+                if len(affected):
+                    self._repair_elements(affected)
+                self.last_vacuum["repaired"] = len(affected)
+            self._sync()
+
+        # pass 3: ConfirmRepaired (hnswvacuum.c:507-589)
+        with timers.phase("hnsw.vacuum.confirm"):
+            if bool(refs_dead(self.nbr0).any()) or \
+                    bool(refs_dead(self.nbr_up).any()):
+                raise InternalError("hnsw graph not repaired")
+
+        # pass 4: MarkDeleted (hnswvacuum.c:594-729): free the slots
+        with timers.phase("hnsw.vacuum.mark_deleted"):
+            for e in deleting.tolist():
+                for r in self.elem_rows[e]:
+                    if r >= 0:
+                        self.row_to_elem.pop(int(r), None)
+                self.free_slots.append(e)
+            self.levels[deleting] = -1
+            self.elem_rows[deleting, :] = -1
+            # zero their values so dedup keys cannot match (MarkDeleted
+            # zeroes vector data, hnswvacuum.c:694-699) — in a private
+            # copy: an aliased tensor is the heap itself
+            if self._alias_values:
+                self._refresh_alias()
+                self.values = self.values.clone()
+                self._alias_values = False
+            dele = torch.as_tensor(deleting.astype(np.int64), device=dev)
+            self.values[dele] = 0
+            self.nbr0[dele] = -1
+            self.kept0[dele] = False
+            up = self.up_slot[deleting]
+            up = up[up >= 0].astype(np.int64)
+            if len(up):
+                up_dev = torch.as_tensor(up, device=dev)
+                self.nbr_up[up_dev] = -1
+                self.kept_up[up_dev] = False
+            if self.dedup:
+                self._dup_index = {key: e for key, e in self._dup_index.items()
+                                   if not dead_mask[e]}
+            self._dirty = True
+            self.last_vacuum["deleted"] = len(deleting)
+            self._sync()
+
+    def _repair_elements(self, elems: np.ndarray) -> None:
+        """RepairGraphElement (hnswvacuum.c:225-274): recompute neighbors
+        from scratch with a fresh search wave and overwrite the lists."""
+        lv = self.levels[elems]
+        wave = self._effective_wave_size()
+        for start in range(0, len(elems), wave):
+            self._insert_wave_repair(elems[start: start + wave],
+                                     lv[start: start + wave])
+
+    def _insert_wave_repair(self, elems: np.ndarray, lv: np.ndarray) -> None:
+        """Like _insert_wave, for elements already in the graph (the
+        existing=true search, hnswutils.c:1278): self-links are excluded
+        from the candidate pools."""
+        if self.entry < 0 or len(elems) == 0:
+            return
+        if self.backlink_mode == "incremental":
+            pools = self._search_wave(elems, lv, exclude_self=True)
+            self._connect_from_pools(elems, lv, pools)
+        else:
+            self._insert_wave_fused(elems, lv, exclude_self=True)
+
+    # ------------------------------------------------------------- statistics
+    @property
+    def live_elements(self) -> int:
+        return int((self.levels >= 0).sum())
+
+
+def _strip_dead(nbr: torch.Tensor, kept: torch.Tensor,
+                dead: torch.Tensor) -> None:
+    """Blank, in place, every id in the neighbor lists ``nbr`` that
+    ``dead`` (a bool per element) marks, and the kept flags of its slot."""
+    nbr.masked_fill_(dead[K._long(nbr)] & (nbr >= 0), -1)
+    kept &= nbr >= 0
+
+
+def _count_found(acc_r: List[np.ndarray], nq: int) -> np.ndarray:
+    """Distinct result rows collected so far per query (one sort over the
+    whole batch)."""
+    s = np.sort(np.concatenate(acc_r, axis=1), axis=1)
+    new = np.concatenate(
+        [s[:, :1] >= 0, (s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)], axis=1)
+    return new.sum(axis=1, dtype=np.int64)
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` with the same bytes (bfloat16 as its uint16
+    bit pattern: numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _dup_keys(host_vals: np.ndarray) -> List[bytes]:
+    """Per row, the bytes of its values: rows with equal keys are
+    duplicates.  One host buffer, sliced by row."""
+    n = len(host_vals)
+    buf = np.ascontiguousarray(host_vals).tobytes()
+    w = host_vals[0].nbytes if n else 0
+    return [buf[i * w:(i + 1) * w] for i in range(n)]
 
 
 def _round_pow2(n: int) -> int:

@@ -1,5 +1,5 @@
 """HNSW device code — counterpart of ``pgvector_tpu.index.hnsw_kernels``
-(the dense, single-device, non-iterative subset).
+(the dense, single-device subset).
 
 The reference walks the graph one candidate at a time (HnswSearchLayer,
 Algorithm 2, hnswutils.c:822-985).  Here, as in the JAX package, one call
@@ -20,10 +20,12 @@ From JAX to PyTorch:
   sliced to size: ties keep position order, as the Pallas hop tail does;
 - graph arrays are updated in place where the reference donates them.
 
-The visited set is mode ``off`` (the reference's default): the pool
-membership check keeps the ef pool duplicate-free.  The hash modes come
-with iterative scans.  The packed query hop is one kernel, K2
-(:func:`..ops.packed_hop.packed_hop`).
+Plain scans and builds run with the visited set ``off`` (the reference's
+default): the pool membership check keeps the ef pool duplicate-free.
+Iterative scans keep a ``hash2`` visited table and a discarded pool
+across resumes (:func:`query_search_first`, :func:`query_search_resume`)
+and, as in the reference, take the row-gather hop.  The packed query hop
+is one kernel, K2 (:func:`..ops.packed_hop.packed_hop`).
 """
 
 from __future__ import annotations
@@ -100,21 +102,114 @@ def _neighbors_closure(nbr0: torch.Tensor, nbr_up: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# visited set: a per-query open-addressing table of element ids
+# ---------------------------------------------------------------------------
+
+#: the two multiplicative salts of the table's slots (the golden-ratio
+#: constant and murmur3's c2)
+_V_SALT1 = 0x9E3779B1
+_V_SALT2 = 0x85EBCA77
+
+
+def visited_capacity(ef: int) -> int:
+    """Table width per query: the typical layer-0 visit count (~ef·lm/2
+    scored candidates) stays under ~1/3 load with 2-choice probing.  A
+    power of two, so a slot is the top bits of a 32-bit hash."""
+    h = 8192
+    while h < 128 * ef:
+        h *= 2
+    return h
+
+
+def visited_init(nq: int, ef: int, mode: str = "hash2",
+                 device=None) -> torch.Tensor:
+    """An empty (nq, visited_capacity(ef)) table for ``hash1`` or
+    ``hash2`` (-1 marks an empty slot)."""
+    return torch.full((nq, visited_capacity(ef)), -1, dtype=torch.int32,
+                      device=device)
+
+
+def _v_slots(table: torch.Tensor, elems: torch.Tensor):
+    """The two candidate slots of each id: the top bits of id × salt mod
+    2^32 (int64 arithmetic; ids are below 2^30, so no product overflows).
+    Negative ids hash as 0; their writes are no-ops."""
+    bits = int(table.shape[1]).bit_length() - 1
+    shift = 32 - bits
+    x = _long(elems)
+    s1 = ((x * _V_SALT1) & _MASK32) >> shift
+    s2 = ((x * _V_SALT2) & _MASK32) >> shift
+    return s1, s2
+
+
+def visited_probe(table: torch.Tensor, elems: torch.Tensor,
+                  mode: str = "hash2"):
+    """Membership check and insert for a (Q, R) block of element ids
+    (negative ids ignored).  Returns (table, seen): ``seen`` is True only
+    for elements present before this call.  The table is updated in place.
+    ``hash1`` probes one slot (a failed insert means the element may be
+    scored again later — wasted work, never a wrong answer).
+
+    Inserts are scatter-max into empty slots (-1): racing inserts into one
+    slot pick the largest id, and occupied slots receive -1, so an insert
+    never evicts an occupant — the invariant resumed scans depend on."""
+    nq, h = table.shape
+    base = torch.arange(nq, device=table.device)[:, None] * h
+    s1, s2 = _v_slots(table, elems)
+    f1, f2 = (base + s1).reshape(-1), (base + s2).reshape(-1)
+    flat = table.view(-1)
+    live = elems >= 0
+    occ1 = flat[f1].view(elems.shape)
+    if mode == "hash1":
+        seen = (occ1 == elems) & live
+        want1 = ~seen & live & (occ1 < 0)
+        flat.scatter_reduce_(0, f1, torch.where(want1, elems, -1).reshape(-1),
+                             "amax")
+        return table, seen
+    occ2 = flat[f2].view(elems.shape)
+    seen = ((occ1 == elems) | (occ2 == elems)) & live
+    # pass 1: empty first slots
+    want1 = ~seen & live & (occ1 < 0)
+    flat.scatter_reduce_(0, f1, torch.where(want1, elems, -1).reshape(-1),
+                         "amax")
+    won1 = flat[f1].view(elems.shape) == elems
+    # pass 2: the rest try their second slot.  Its occupancy is read again
+    # after pass 1, which may have just filled it: a stale read would let
+    # the scatter-max evict pass 1's fresh occupant
+    rem = ~seen & live & ~(want1 & won1)
+    occ2 = flat[f2].view(elems.shape)
+    want2 = rem & (occ2 < 0)
+    flat.scatter_reduce_(0, f2, torch.where(want2, elems, -1).reshape(-1),
+                         "amax")
+    return table, seen
+
+
+# ---------------------------------------------------------------------------
 # one beam hop (the body of Algorithm 2)
 # ---------------------------------------------------------------------------
 
 
 def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
-              expand: int = 1, packed=None, metric: Optional[Metric] = None):
+              expand: int = 1, packed=None, metric: Optional[Metric] = None,
+              visited=None, disc=None, vmode: str = "off"):
     """One expansion hop: pop the ``expand`` nearest unexpanded candidates
-    per query, gather their neighbors, score the new ones and merge them
-    into the pool.  Returns (pool_d, pool_i, pool_x, done).
+    per query, gather their neighbors, score the unvisited ones and merge
+    them into the pool.  Returns (pool_d, pool_i, pool_x, visited, done).
+
+    ``visited`` — the (Q, H) visited table, probed with ``vmode``
+    (``hash1``/``hash2``; ``off`` leaves it None).
+
+    ``disc`` — optional (disc_d, disc_i) discarded pool: candidates evicted
+    past the ef bound are merged into it (the discarded pairing heap of
+    iterative scans, hnswutils.c:936-971).  Then the return is (pool_d,
+    pool_i, pool_x, visited, disc, done, scored), ``scored`` the number of
+    candidates each query scored in this hop.
 
     ``packed`` — optional ``(nbr_vals, qs_p, nbr0)``: adjacency-packed
     neighbor values ``nbr_vals[cap, 2m, D]`` (f32 or bf16), the queries to
     score them against and the level-0 lists.  Each expanded node's
     neighbor values are one contiguous slab; the neighbor ids, the slab
-    scores and the merge run in K2."""
+    scores and the merge run in K2, which takes no visited set and no
+    discarded pool (as the reference's Pallas tail)."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -140,7 +235,7 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
         d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
                            sel_flat.contiguous(), nbr0, nbr_vals, qs_p, ef,
                            metric)
-        return d, pp >> 1, (pp & 1) == 1, done
+        return d, pp >> 1, (pp & 1) == 1, visited, done
     # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
     nbrs = torch.where(sel_flat[:, None] >= 0, nb, -1).reshape(nq, -1)
@@ -154,22 +249,44 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
         dup[:, 1:] = (key[:, 1:] == key[:, :-1]) & (key[:, 1:] != inval)
         ids = ((key * _PERM_INV) & _MASK32).to(torch.int32)
         nbrs = torch.where(dup | (key == inval), -1, ids)
-    # pool-membership check keeps the ef pool duplicate-free
+    # pool-membership check keeps the ef pool duplicate-free (also when a
+    # visited-table insert failed)
     in_pool = torch.any(nbrs[:, :, None] == pool_i[:, None, :], dim=2)
     nbrs = torch.where(in_pool, -1, nbrs)
+    if vmode != "off":
+        visited, seen = visited_probe(visited, nbrs, vmode)
+        nbrs = torch.where(seen, -1, nbrs)
     nd = score(qs, nbrs)
-    return _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, ef) + (done,)
+    return _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, visited, ef, disc,
+                      done)
 
 
-def _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, ef: int):
+def _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, visited, ef: int, disc,
+               done):
     """Merge scored candidates into the ef pool: (id·2 | expanded) packed
     into one int32 rides a stable sort by distance (-1 packs to -2 and
-    unpacks back through the arithmetic shift)."""
+    unpacks back through the arithmetic shift).  With ``disc``, what falls
+    past the ef bound is merged into the discarded pool, and each query's
+    scored-candidate count comes back too: the reference counts every
+    tuple whose distance HnswSearchLayer computes, which is what
+    hnsw.max_scan_tuples meters (hnswscan.c:255-266)."""
     d = torch.cat([pool_d, nd], dim=1)
     packed = torch.cat([pool_i * 2 + pool_x.to(torch.int32), nbrs * 2], dim=1)
     d, order = torch.sort(d, dim=1, stable=True)
-    packed = torch.gather(packed, 1, order[:, :ef])
-    return d[:, :ef], packed >> 1, (packed & 1) == 1
+    if disc is None:
+        packed = torch.gather(packed, 1, order[:, :ef])
+        return d[:, :ef], packed >> 1, (packed & 1) == 1, visited, done
+    packed = torch.gather(packed, 1, order)
+    i = packed >> 1
+    disc_d, disc_i = disc
+    dk = disc_d.shape[1]
+    dd = torch.cat([disc_d, d[:, ef:]], dim=1)
+    di = torch.cat([disc_i, i[:, ef:]], dim=1)
+    dd, o = torch.sort(dd, dim=1, stable=True)
+    disc = (dd[:, :dk], torch.gather(di, 1, o[:, :dk]))
+    scored = torch.sum(nbrs >= 0, dim=1, dtype=torch.int32)
+    return (d[:, :ef], i[:, :ef], (packed[:, :ef] & 1) == 1, visited, disc,
+            done, scored)
 
 
 def _init_pool(init_d, init_i, ef: int):
@@ -186,21 +303,42 @@ def _init_pool(init_d, init_i, ef: int):
     return pool_d, pool_i, torch.zeros_like(pool_i, dtype=torch.bool)
 
 
-def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
-                 max_steps: int, expand: int = 1, packed=None, metric=None):
-    """Algorithm 2 (HnswSearchLayer, hnswutils.c:822-985), batched.
-    Returns (pool_d, pool_i, steps).  One host read per hop decides
-    whether every query is done."""
+def _pool_seed(init_d, init_i, visited, ef: int, vmode: str = "off"):
+    """The initial sorted pool, its seeds recorded in the visited table."""
     pool_d, pool_i, pool_x = _init_pool(init_d, init_i, ef)
+    if vmode != "off":
+        visited, _ = visited_probe(visited, pool_i, vmode)
+    return pool_d, pool_i, pool_x, visited
+
+
+def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
+                 max_steps: int, expand: int = 1, packed=None, metric=None,
+                 visited=None, disc=None, vmode: str = "off"):
+    """Algorithm 2 (HnswSearchLayer, hnswutils.c:822-985), batched.
+    Returns (pool_d, pool_i, steps); with ``disc`` (a (disc_d, disc_i)
+    pair), (pool_d, pool_i, visited, disc, steps, scanned), ``scanned``
+    each query's scored candidates.  One host read per hop decides whether
+    every query is done."""
+    pool_d, pool_i, pool_x, visited = _pool_seed(init_d, init_i, visited,
+                                                 ef, vmode)
+    scanned = (torch.zeros(pool_d.shape[0], dtype=torch.int32,
+                           device=pool_d.device) if disc is not None else None)
     steps = 0
     while steps < max_steps:
-        pool_d, pool_i, pool_x, done = _hop_body(
-            score, neighbors_of, qs, pool_d, pool_i, pool_x, ef, expand,
-            packed=packed, metric=metric)
+        out = _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef,
+                        expand, packed=packed, metric=metric, visited=visited,
+                        disc=disc, vmode=vmode)
+        if disc is None:
+            pool_d, pool_i, pool_x, visited, done = out
+        else:
+            pool_d, pool_i, pool_x, visited, disc, done, scored = out
+            scanned += scored
         steps += 1
         if bool(done.all()):
             break
-    return pool_d, pool_i, steps
+    if disc is None:
+        return pool_d, pool_i, steps
+    return pool_d, pool_i, visited, disc, steps, scanned
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +481,47 @@ def merge_backlinks_wholesale(metric, vecs, old_lists, old_kept, new_src,
     return sel, kept
 
 
+def merge_backlinks(metric, vecs, old_lists, old_kept, new_src, targets,
+                    lm: int):
+    """HnswUpdateConnection batched by target (hnswutils.c:1181-1229), with
+    the reference's *incremental* semantics: each new source is folded one
+    at a time — appended while the list has room, else one select over the
+    lm+1 candidates with the incumbents' sticky kept flags as the forced
+    set (the cached ``closer`` reuse, hnswutils.c:1094-1131), so exactly
+    one unprotected slot turns over per source.  Returns ((T, lm) lists,
+    (T, lm) kept flags)."""
+    score = make_scorer(metric, vecs)
+    t_rep = elems_as_queries(vecs, targets)
+    t = old_lists.shape[0]
+    rows = torch.arange(t, device=old_lists.device)
+    cur = old_lists
+    curk = old_kept & (old_lists >= 0)
+    for j in range(new_src.shape[1]):
+        s = new_src[:, j]
+        skip = (s < 0) | (targets < 0) | torch.any(cur == s[:, None], dim=1)
+        has_free = torch.sum(cur >= 0, dim=1) < lm
+        # append path: s into the first free slot (its flag stays False —
+        # appended members are backfill until a select admits them)
+        first_free = torch.argmax((cur < 0).to(torch.int32), dim=1)
+        appended = cur.clone()
+        appended[rows, first_free] = torch.where(has_free & ~skip, s,
+                                                 cur[rows, first_free])
+        # replace path: select lm of the lm+1 candidates; sticky
+        # incumbents are forced, so turnover happens in the backfill slots
+        cand = torch.cat([cur, s[:, None]], dim=1)
+        forced = torch.cat([curk, curk.new_zeros((t, 1))], dim=1)
+        base_d = score(t_rep, cand)
+        base_d = torch.where(targets[:, None] >= 0, base_d, torch.inf)
+        pair = _pairwise_dists(metric, vecs, cand)
+        pruned, pruned_k, _ = _select_from(cand, base_d, pair, lm, forced)
+        keep = skip[:, None]
+        cur = torch.where(keep, cur, torch.where(has_free[:, None], appended,
+                                                 pruned))
+        curk = torch.where(keep, curk, torch.where(has_free[:, None], curk,
+                                                   pruned_k))
+    return cur, curk
+
+
 def _group_edges(tgt, src, d, smax: int):
     """Group an (E,) edge list by target, on device.
 
@@ -465,11 +644,14 @@ def connect_level(metric, vecs, nbr0, nbr_up, kept0, kept_up, up_slot,
 
 
 def _wave_level_loop(score, qs, lv, entry: int, entry_level: int, ef: int,
-                     l_unroll: int, greedy_fn: Callable, beam_fn: Callable):
+                     l_unroll: int, greedy_fn: Callable, beam_fn: Callable,
+                     self_ids=None):
     """Level structure of Algorithm 1 over levels l_unroll..0.  ``lv`` is
     the host copy of the wave's levels; a level where no query runs a
     greedy step or a beam changes nothing and is skipped (the reference
-    runs it masked)."""
+    runs it masked).  With ``self_ids`` (elements already in the graph,
+    re-searched by vacuum's repair) each level's output pool drops the
+    query's own element (the existing=true search, hnswutils.c:1278)."""
     dev = qs.device
     nq = len(lv)
     lv_t = torch.as_tensor(lv, dtype=torch.int32, device=dev)
@@ -500,15 +682,21 @@ def _wave_level_loop(score, qs, lv, entry: int, entry_level: int, ef: int,
             bm = (lv_t >= lc)[:, None]
             pool_d = torch.where(bm, pd, pool_d)
             pool_i = torch.where(bm, pi, pool_i)
-        out_d[lc] = pool_d
-        out_i[lc] = pool_i
+        if self_ids is None:
+            out_d[lc], out_i[lc] = pool_d, pool_i
+        else:
+            o_i = torch.where(pool_i == self_ids[:, None], -1, pool_i)
+            out_d[lc] = torch.where(o_i >= 0, pool_d, torch.inf)
+            out_i[lc] = o_i
     return torch.stack(out_d), torch.stack(out_i)
 
 
 def wave_search(metric, vecs, nbr0, nbr_up, up_slot, qs, lv, entry: int,
-                entry_level: int, ef: int, l_unroll: int, expand: int = 1):
-    """Algorithm 1's search for a wave of new elements.  Returns stacked
-    per-level pools (l_unroll+1, Q, ef)."""
+                entry_level: int, ef: int, l_unroll: int, expand: int = 1,
+                self_ids=None):
+    """Algorithm 1's search for a wave of elements.  Returns stacked
+    per-level pools (l_unroll+1, Q, ef); ``self_ids`` excludes each
+    query's own element from them (vacuum's repair)."""
     score = make_scorer(metric, vecs)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
 
@@ -522,7 +710,7 @@ def wave_search(metric, vecs, nbr0, nbr_up, up_slot, qs, lv, entry: int,
         return pd, pi
 
     return _wave_level_loop(score, qs, lv, entry, entry_level, ef, l_unroll,
-                            greedy_fn, beam_fn)
+                            greedy_fn, beam_fn, self_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -588,3 +776,75 @@ def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
     d, r = _expand_topk(pool_d, pool_i, elem_rows, row_valid, fmask, k,
                         heaptids)
     return d, r, steps
+
+
+# ---------------------------------------------------------------------------
+# iterative scans — persistent visited set + discarded pool
+# (GetScanItems with the discarded heap, hnswscan.c:25-56; ResumeScanItems,
+# hnswscan.c:61-87).  As in the reference, they take the row-gather hop
+# with a hash2 visited table, never the packed slab cache.
+# ---------------------------------------------------------------------------
+
+
+def query_search_first(metric, vecs, nbr0, nbr_up, up_slot, qs, entry: int,
+                       entry_level: int, ef: int, dk: int, expand: int = 1):
+    """First batch of an iterative scan: Algorithm 5 with a live discarded
+    pool of ``dk`` slots.  Returns (pool_d, pool_i, visited, disc_d,
+    disc_i, scanned) — the state a resume continues from, and each query's
+    scored candidates."""
+    score = make_scorer(metric, vecs)
+    nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
+    nq = qs.shape[0]
+    cur = torch.full((nq,), entry, dtype=torch.int32, device=qs.device)
+    cur_d = score(qs, cur[:, None])[:, 0]
+    for lc in range(entry_level, 0, -1):
+        cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
+                                    max_steps=512)
+    visited = visited_init(nq, ef, device=qs.device)
+    disc = (torch.full((nq, dk), torch.inf, device=qs.device),
+            torch.full((nq, dk), -1, dtype=torch.int32, device=qs.device))
+    pool_d, pool_i, visited, (disc_d, disc_i), _, scanned = search_layer(
+        score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None], ef=ef,
+        max_steps=8 * ef + 64, expand=expand, visited=visited, disc=disc,
+        vmode="hash2")
+    return pool_d, pool_i, visited, disc_d, disc_i, scanned
+
+
+def query_search_resume(metric, vecs, nbr0, nbr_up, up_slot, qs, visited,
+                        disc_d, disc_i, ef: int, expand: int = 1):
+    """ResumeScanItems (hnswscan.c:61-87): re-seed a layer-0 search from the
+    best ef discarded candidates without resetting the visited set
+    (initVisited=false), keeping the rest of the discarded pool live."""
+    score = make_scorer(metric, vecs)
+    nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
+    nq, dk = disc_d.shape
+    keep = min(ef, dk)
+    seed_d, seed_i = disc_d[:, :ef], disc_i[:, :ef]
+    rest_d = torch.cat([disc_d[:, keep:], disc_d.new_full((nq, keep),
+                                                          torch.inf)], dim=1)
+    rest_i = torch.cat([disc_i[:, keep:], disc_i.new_full((nq, keep), -1)],
+                       dim=1)
+    pool_d, pool_i, visited, (disc_d, disc_i), _, scanned = search_layer(
+        score, lambda e: nbrs(e, 0), qs, seed_d, seed_i, ef=ef,
+        max_steps=8 * ef + 64, expand=expand, visited=visited,
+        disc=(rest_d, rest_i), vmode="hash2")
+    return pool_d, pool_i, visited, disc_d, disc_i, scanned
+
+
+def merge_scan_batches(all_d, all_r, k: int):
+    """Merge an iterative scan's batches, (Q, batches·w) distances and row
+    ids, into each query's k best.  One row emitted twice carries the same
+    distance both times (suppressed entries arrive as row -1), so keeping
+    the first copy is keeping any: a stable sort by row, repeats masked to
+    +inf, a stable sort by distance, the first k.  Equal distances come
+    out in ascending row order."""
+    d = torch.where(all_r < 0, torch.inf, all_d)
+    sr, o = torch.sort(all_r, dim=1, stable=True)
+    sd = torch.gather(d, 1, o)
+    dup = torch.zeros_like(sr, dtype=torch.bool)
+    dup[:, 1:] = sr[:, 1:] == sr[:, :-1]
+    sd = torch.where(dup, torch.inf, sd)
+    sd, o = torch.sort(sd, dim=1, stable=True)
+    out_d = sd[:, :k]
+    out_r = torch.gather(sr, 1, o[:, :k])
+    return out_d, torch.where(torch.isinf(out_d), -1, out_r)

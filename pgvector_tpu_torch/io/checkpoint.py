@@ -14,11 +14,11 @@ and fsynced, then ``manifest.json`` is replaced atomically (tmp + fsync +
 ``os.replace``), then the directory is fsynced and older epochs' files are
 removed.  A crash leaves either the previous epoch or the new one.
 
-The port holds dense tables, dense HNSW graphs built with ``dedup=False``
-in ``wholesale`` backlink mode, and dense IVFFlat indexes.  Any other
-checkpoint raises :class:`~pgvector_tpu_torch.errors.FeatureNotSupported`
-naming what is missing; none is loaded into something that answers
-differently.
+The port holds dense tables, dense HNSW graphs (with or without heap-TID
+dedup, either backlink mode, vacuumed or not) and dense IVFFlat indexes.
+Any other checkpoint raises
+:class:`~pgvector_tpu_torch.errors.FeatureNotSupported` naming what is
+missing; none is loaded into something that answers differently.
 """
 
 from __future__ import annotations
@@ -232,7 +232,7 @@ def save_hnsw(idx, path: str) -> None:
         "n_elems": n, "n_upper": nu,
         "nbr_up_width": int(idx.nbr_up.shape[1]),
         "entry": idx.entry, "entry_level": idx.entry_level,
-        "free_slots": [], "seed": idx.seed,
+        "free_slots": [int(e) for e in idx.free_slots], "seed": idx.seed,
         "rng_state": _plain(idx._rng.bit_generator.state),
         "wave_size": idx.wave_size, "beam_expand": idx.beam_expand,
         "backlink_mode": idx.backlink_mode, "dedup": idx.dedup,
@@ -240,20 +240,13 @@ def save_hnsw(idx, path: str) -> None:
 
 
 def load_hnsw(table: DenseTable, path: str):
-    """The graph of an HNSW checkpoint over ``table`` (on its device)."""
+    """The graph of an HNSW checkpoint over ``table`` (on its device):
+    dedup or not, either backlink mode, vacuumed (with free slots) or
+    not.  Bit and sparse graphs are not ported yet."""
     m = _read_manifest(path, "hnsw")
-    unported = []
     if m.get("kind", "dense") != "dense":
-        unported.append(f'{m["kind"]} graphs')
-    if m.get("dedup", True):
-        unported.append("heap-TID dedup (dedup=True)")
-    if m.get("backlink_mode", "wholesale") != "wholesale":
-        unported.append(f'backlink_mode "{m["backlink_mode"]}"')
-    if m.get("free_slots"):
-        unported.append("free element slots (vacuumed graphs)")
-    if unported:
         raise FeatureNotSupported(
-            f"hnsw checkpoint with {', '.join(unported)} is not ported yet")
+            f'hnsw checkpoint over a {m["kind"]} table is not ported yet')
     ep = m.get("epoch", 0)
     arrays = {}
     for name in ("nbr0", "nbr_up", "kept0", "kept_up", "up_slot", "levels",
@@ -263,6 +256,7 @@ def load_hnsw(table: DenseTable, path: str):
     meta.setdefault("nbr_up_width", int(arrays["nbr_up"].shape[1]))
     meta.setdefault("wave_size", 1024)
     meta.setdefault("beam_expand", 1)
+    meta.setdefault("backlink_mode", "wholesale")
     idx = hnsw_from_numpy(table, arrays, meta)
     if "rng_state" in m:
         idx._rng.bit_generator.state = m["rng_state"]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..errors import DataException, FeatureNotSupported
-from ..index.hnsw import HNSWIndex
+from ..index.hnsw import HNSWIndex, _dup_keys, _host_array
 from ..index.ivfflat import IVFFlatIndex
 from ..ops.metric import Metric
 from ..store.table import DenseTable
@@ -59,15 +59,18 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
                     meta: dict, device=None) -> HNSWIndex:
     """An HNSWIndex over ``table`` holding the graph in ``arrays`` (the
     ``save_hnsw`` arrays, sliced to ``n_elems`` / ``n_upper`` rows) and
-    ``meta`` (its manifest, which also names the metric).  The index and
-    its tensors live on ``device`` (default: the table's)."""
+    ``meta`` (its manifest, which also names the metric).  ``dedup``
+    defaults to True and ``free_slots`` to none, as in the reference's
+    loader; ``row_to_elem`` and the dedup keys are rebuilt from the arrays
+    as that loader rebuilds them.  The index and its tensors live on
+    ``device`` (default: the table's)."""
     missing = [a for a in HNSW_ARRAYS if a not in arrays] + \
         [f for f in HNSW_FIELDS if f not in meta]
     if missing:
         raise DataException(f"hnsw state lacks {', '.join(missing)}")
-    if meta["backlink_mode"] != "wholesale":
-        raise DataException(
-            f'backlink_mode "{meta["backlink_mode"]}" is not ported yet')
+    if meta.get("kind", "dense") != "dense":
+        raise FeatureNotSupported(
+            f'hnsw over {meta["kind"]} tables is not ported yet')
     if device is not None and torch.device(device) != table.device:
         raise DataException("the index lives on its table's device")
     metric = meta["metric"]
@@ -78,7 +81,8 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
                     seed=int(meta["seed"]), build=False,
                     wave_size=int(meta["wave_size"]),
                     beam_expand=int(meta["beam_expand"]),
-                    backlink_mode=meta["backlink_mode"], dedup=False)
+                    backlink_mode=meta["backlink_mode"],
+                    dedup=bool(meta.get("dedup", True)))
     while idx.cap_e < n:
         idx._grow()
     levels = np.asarray(arrays["levels"], np.int32)[:n]
@@ -88,6 +92,7 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
     dev = idx.device
     idx.n_elems = n
     idx.entry, idx.entry_level = int(meta["entry"]), int(meta["entry_level"])
+    idx.free_slots = [int(e) for e in meta.get("free_slots", [])]
     idx.levels[:n] = levels
     idx.up_slot[:n] = np.asarray(arrays["up_slot"], np.int32)[:n]
     idx.elem_rows[:n] = np.asarray(arrays["elem_rows"], np.int32)[:n]
@@ -110,6 +115,15 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
     idx.values = torch.zeros((idx.cap_e, table.dim), dtype=idx._val_dtype,
                              device=dev)
     idx.values[:n] = as_tensor(arrays["values0"][:n], dev, idx._val_dtype)
+    # each row's element, the last element holding it winning, as the
+    # reference's loader fills it element by element
+    er = idx.elem_rows[:n]
+    e_of, slot = np.nonzero(er >= 0)
+    idx.row_to_elem = dict(zip(er[e_of, slot].tolist(), e_of.tolist()))
+    if idx.dedup and n:
+        live = np.flatnonzero(levels >= 0)
+        keys = _dup_keys(_host_array(idx.values[:n]))
+        idx._dup_index = {keys[e]: int(e) for e in live}
     idx._dirty = True
     idx._nbr_vals = None
     return idx

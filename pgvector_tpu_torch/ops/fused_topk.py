@@ -126,6 +126,62 @@ def fused_topk(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
 fused_topk.launches = 0
 
 
+# K1's error against its plain version, from the arithmetic of each.
+#
+# u = 2^-24 is f32's unit roundoff.  For a query q and a row x of D dims,
+# let S = sum_i |q_i| |x_i| (at most |q| |x|).  K1 (csrc/fused_topk.cu):
+#
+# - split: hi = tf32(a) rounds to 11 significant bits, so |a - hi| <=
+#   2^-11 |a|, and lo = tf32(a - hi) leaves |a - hi - lo| <= 2^-22 |a| =
+#   4u |a|.  hi.hi + hi.lo + lo.hi then misses lo.lo (<= 4u |a||b|) and
+#   the two rounding remainders times the other operand (<= 4u |a||b|
+#   each): 12u S over the D products.  TF32 products of 11-bit
+#   significands are exact in the tensor core's f32 accumulator.
+# - accumulation: each 32-dim chunk runs 12 mma.sync ops (3 products x 4
+#   k8 slices) into fresh accumulators; an mma may truncate rather than
+#   round when it adds its 8 products into the accumulator, so allow two
+#   roundings of 2u each an op against the chunk's sum of |terms|: 48u S
+#   over the chunks.  Each chunk's sum is then added to the running tile
+#   sum in f32 (u S an add, ceil(D/32) adds).
+# - the score dbsq - 2 q.x rounds once: u (dbsq + 2S).
+#
+# The plain version (one f32 product, TF32 off) accumulates D products in
+# some order: at most D u S, plus the same final rounding.  The two scores
+# of one (q, x) therefore differ by at most
+#
+#     bound = 2u ((60 + ceil(D/32) + D) S + dbsq + 2S)
+#
+# (the factor 2 on the dot products is the score's -2 q.x).  The bound
+# grows with the terms |x|^2 and 2 q.x, not with the score, which can
+# cancel far below them: at 1M x 128 the scores near 18.8 sit on terms
+# near 400.  A measured error above the bound is a kernel fault.
+_U = 2.0 ** -24
+
+
+def k1_error_bound(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
+                   *ids: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """(Q, k) f32 bound on |K1 − fused_topk_plain| for the scores of rows
+    ``ids`` (one or more (Q, k) id tensors, e.g. both results; the largest
+    bound of the rows at a position is taken), derived above.  Positions
+    whose id is -1 get 0."""
+    d = qs.shape[1]
+    c = 60 + -(-d // 32) + d
+    qa = qs.abs().float()
+    out = torch.zeros(ids[0].shape, dtype=torch.float32, device=qs.device)
+    for t in ids:
+        t = t.to(qs.device).long()
+        for s in range(0, qs.shape[0], chunk):
+            ti = t[s: s + chunk]
+            safe = ti.clamp(min=0)
+            sabs = torch.einsum("qd,qkd->qk", qa[s: s + chunk],
+                                db[safe].abs().float())
+            nrm = torch.where(ti >= 0, dbsq[safe], 0.0)
+            b = 2.0 * _U * (c * sabs + nrm + 2.0 * sabs)
+            out[s: s + chunk] = torch.maximum(
+                out[s: s + chunk], torch.where(ti >= 0, b, 0.0))
+    return out
+
+
 def exact_topk(
     metric: Metric,
     qs: torch.Tensor,  # (Q, D)

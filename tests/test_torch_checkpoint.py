@@ -3,10 +3,11 @@
 The port's ``io.checkpoint`` writes and reads the reference's directory
 format (manifest with magic, version and epoch; epoch-tagged ``.npy``
 files; bfloat16 arrays as uint16 under the ``.bf16`` tag).  Each way
-round, one package saves a dense table, a ``dedup=False`` HNSW graph or
-an IVFFlat index, and the other loads it and answers the same queries
-with the same ids apart from ties.  Checkpoints the port cannot hold
-raise FeatureNotSupported.
+round, one package saves a dense table, an HNSW graph (with or without
+heap-TID dedup, incremental backlinks, vacuumed) or an IVFFlat index, and
+the other loads it with the same bookkeeping and answers the same queries
+with the same ids apart from ties (distances within atol 1e-6).  Bit
+checkpoints, which the port cannot hold, raise FeatureNotSupported.
 """
 
 import json
@@ -141,16 +142,93 @@ def test_hnsw_port_to_reference(data, dtype, tmp_path, hnsw_env):
     assert_same_topk(d1, r1, d2, r2, atol=0, rtol=0)
 
 
+def _live_rows(db):
+    """300 rows of which 20 repeat earlier ones (heap-TID dedup merges
+    them) and 30 are deleted (a vacuum frees them)."""
+    rows = np.concatenate([db[:280], db[:20]])
+    return rows, np.arange(5, 300, 10)
+
+
+def _row_map(idx):
+    """row_to_elem over the rows the elements hold: a vacuum drops dead
+    rows from elem_rows but leaves them in the in-memory map (in both
+    packages); the loaders rebuild the map from elem_rows."""
+    return {r: e for r, e in idx.row_to_elem.items()
+            if r in idx.elem_rows[e]}
+
+
+def _assert_same_graph_books(a, b):
+    n = a.n_elems
+    assert (b.n_elems, b.entry, b.entry_level) == (n, a.entry, a.entry_level)
+    assert (b.dedup, b.backlink_mode) == (a.dedup, a.backlink_mode)
+    assert list(b.free_slots) == list(a.free_slots)
+    assert _row_map(b) == _row_map(a) and b._dup_index == a._dup_index
+    np.testing.assert_array_equal(b.elem_rows[:n], a.elem_rows[:n])
+    np.testing.assert_array_equal(b.levels[:n], a.levels[:n])
+
+
 @pytest.mark.parametrize("kw,what", [
     ({"dedup": True}, "dedup"),
-    ({"dedup": False, "backlink_mode": "incremental"}, "incremental")])
-def test_hnsw_checkpoint_the_port_cannot_hold(data, kw, what, tmp_path):
-    db, _ = data
-    ref = JHNSW(_ref_table(db[:300]), JMetric.L2, m=8, ef_construction=32,
-                build=False, **kw)
+    ({"dedup": False, "backlink_mode": "incremental"}, "incremental"),
+    ({"dedup": True}, "vacuumed")])
+def test_hnsw_checkpoint_the_port_cannot_hold(data, kw, what, tmp_path,
+                                              hnsw_env):
+    """Graphs the port could not hold before — heap-TID dedup, incremental
+    backlinks, vacuumed with free slots — now round trip both ways: each
+    package saves its own build and the other loads it with the same
+    bookkeeping and answers with the same ids."""
+    db, q = data
+    rows, dead = _live_rows(db)
+    opts = dict(m=8, ef_construction=32, wave_size=64, **kw)
+    jt, tt = _ref_table(rows), _port_table(rows)
+    ref = JHNSW(jt, JMetric.L2, **opts)
+    port = HNSWIndex(tt, Metric.L2, **opts)
+    if what == "vacuumed":
+        for t, idx in ((jt, ref), (tt, port)):
+            t.delete(dead)
+            idx.vacuum()
+        assert len(port.free_slots) == len(ref.free_slots) > 0
+    for saver, loader, src, table in (
+            (jck.save_hnsw, tck.load_hnsw, ref, tt),
+            (tck.save_hnsw, jck.load_hnsw, port, jt)):
+        path = str(tmp_path / type(src).__module__)
+        saver(src, path)
+        got = loader(table, path)
+        _assert_same_graph_books(src, got)
+        d0, r0 = src.search(q, K, ef_search=40)
+        d1, r1 = got.search(q, K, ef_search=40)
+        assert_same_topk(d0, r0, d1, r1, atol=1e-6)
+        assert not np.isin(r1, dead if what == "vacuumed" else []).any()
+
+
+def test_hnsw_reference_defaults_vacuumed_to_port(data, tmp_path, hnsw_env):
+    """A reference graph built with its defaults (dedup on), then vacuumed,
+    loads into the port, which answers plain and iterative scans as the
+    reference does and reuses the freed slots in the reference's order."""
+    from pgvector_tpu import config as jconfig
+    from pgvector_tpu_torch import config
+
+    db, q = data
+    rows, dead = _live_rows(db)
+    jt, tt = _ref_table(rows, dead=dead), _port_table(rows, dead=dead)
+    ref = JHNSW(_ref_table(rows), JMetric.L2)
+    ref.table.delete(dead)
+    ref.vacuum()
     jck.save_hnsw(ref, str(tmp_path))
-    with pytest.raises(FeatureNotSupported, match=what):
-        tck.load_hnsw(_port_table(db[:300]), str(tmp_path))
+    port = tck.load_hnsw(tt, str(tmp_path))
+    ref = jck.load_hnsw(jt, str(tmp_path))
+    _assert_same_graph_books(ref, port)
+    for mode in ("off", "relaxed_order", "strict_order"):
+        with jconfig.local(**{"hnsw.iterative_scan": mode}):
+            d0, r0 = ref.search(q, K, ef_search=20)
+        with config.local(**{"hnsw.iterative_scan": mode}):
+            d1, r1 = port.search(q, K, ef_search=20)
+        assert_same_topk(d0, r0, d1, r1, atol=1e-6)
+    new = np.random.default_rng(4).normal(size=(12, 8)).astype(np.float32)
+    np.testing.assert_array_equal(jt.insert(new), tt.insert(new))
+    ref.insert(np.arange(300, 312))
+    port.insert(np.arange(300, 312))
+    _assert_same_graph_books(ref, port)
 
 
 # ------------------------------------------------------------ IVFFlat

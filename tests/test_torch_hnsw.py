@@ -26,6 +26,7 @@ from pgvector_tpu.store.table import DenseTable as JTable  # noqa: E402
 from pgvector_tpu_torch import DenseTable, HNSWIndex, Metric  # noqa: E402
 from pgvector_tpu_torch.io.convert import (  # noqa: E402
     hnsw_from_numpy, table_from_numpy)
+from torch_hnsw_pairs import reference_state  # noqa: E402
 from torch_parity import assert_same_topk  # noqa: E402
 
 K, EF = 10, 48
@@ -36,30 +37,6 @@ RECALL_FLOOR = 0.97
 #: least share of a port-built graph's level-0 lists equal to the
 #: reference's on the same data and seed
 LEVEL0_SAME = 0.95
-
-
-def _reference_state(idx):
-    """The arrays and manifest fields of io.checkpoint.save_hnsw."""
-    n, nu = idx.n_elems, idx.n_upper
-    arrays = {
-        "nbr0": np.asarray(idx.nbr0[:n]),
-        "nbr_up": np.asarray(idx.nbr_up[:nu]),
-        "kept0": np.asarray(idx.kept0[:n]),
-        "kept_up": np.asarray(idx.kept_up[:nu]),
-        "up_slot": idx.up_slot[:n],
-        "levels": idx.levels[:n],
-        "elem_rows": idx.elem_rows[:n],
-        "values0": np.asarray(idx.values[0][:n]),
-    }
-    meta = {
-        "metric": idx.metric.name, "m": idx.m,
-        "ef_construction": idx.ef_construction, "n_elems": n,
-        "n_upper": nu, "nbr_up_width": int(idx.nbr_up.shape[1]),
-        "entry": idx.entry, "entry_level": idx.entry_level,
-        "seed": idx.seed, "wave_size": idx.wave_size,
-        "beam_expand": idx.beam_expand, "backlink_mode": idx.backlink_mode,
-    }
-    return arrays, meta
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +51,7 @@ def graphs():
     ref = JHNSW(jt, JMetric.L2, m=8, ef_construction=32, wave_size=256,
                 beam_expand=4, dedup=False)
     tt = table_from_numpy(db, np.ones(len(db), bool), device="cpu")
-    arrays, meta = _reference_state(ref)
+    arrays, meta = reference_state(ref)
     port = hnsw_from_numpy(tt, arrays, meta)
     exact = ((q[:, None, :] - db[None, :, :]) ** 2).sum(-1)
     gt = np.argsort(exact, axis=1, kind="stable")[:, :K]

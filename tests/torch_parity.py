@@ -17,17 +17,38 @@ def assert_same_topk(d_ref, i_ref, d_got, i_got, atol=ATOL, rtol=RTOL):
     """Distances agree within tolerance; ids agree except inside groups of
     positions whose reference distances tie within the tolerance, where
     the id sets must agree (a group cut by the k boundary only needs
-    distinct ids: its other members lie beyond k)."""
+    distinct ids: its other members lie beyond k).
+
+    ``atol`` may be an array of the distances' shape: a bound per entry
+    (such as ``ops.fused_topk.k1_error_bound``).  Then positions j-1 and j
+    tie when their distances differ by at most the sum of their bounds,
+    since each may move by its own."""
     d_ref, d_got = np.asarray(d_ref), np.asarray(d_got)
     i_ref, i_got = np.asarray(i_ref), np.asarray(i_got)
     if d_ref.shape != d_got.shape or i_ref.shape != i_got.shape:
         raise AssertionError(f"shapes differ: {d_ref.shape}/{i_ref.shape} "
                              f"against {d_got.shape}/{i_got.shape}")
-    np.testing.assert_allclose(d_got, d_ref, atol=atol, rtol=rtol)
+    per_entry = np.ndim(atol) > 0
+    if per_entry:
+        atol = np.broadcast_to(np.asarray(atol, np.float64), d_ref.shape)
+        fin = np.isfinite(d_ref)
+        if not (fin == np.isfinite(d_got)).all() or \
+                not (d_ref[~fin] == d_got[~fin]).all():
+            raise AssertionError("non-finite distances differ")
+        err = np.abs(d_got[fin].astype(np.float64) - d_ref[fin])
+        over = err > atol[fin] + rtol * np.abs(d_ref[fin])
+        if over.any():
+            j = np.argmax(err - atol[fin])
+            raise AssertionError(f"{int(over.sum())} distances beyond their "
+                                 f"bound, the worst {err[j]:.3g} against "
+                                 f"{atol[fin][j]:.3g}")
+    else:
+        np.testing.assert_allclose(d_got, d_ref, atol=atol, rtol=rtol)
     k = d_ref.shape[1]
     for r in np.flatnonzero((i_ref != i_got).any(axis=1)):
         d = d_ref[r]
-        tie = np.abs(np.diff(d)) <= atol + rtol * np.abs(d[1:])
+        pair = atol[r, 1:] + atol[r, :-1] if per_entry else atol
+        tie = np.abs(np.diff(d)) <= pair + rtol * np.abs(d[1:])
         tie &= np.isfinite(d[1:])
         start = 0
         for j in range(1, k + 1):
