@@ -20,10 +20,19 @@ batch-1 latency, and the inverted probe scan's parts with their bounds.
 Then, on the HNSW index of the main path, the live-index phase: filtered
 reads (10 % and 1 % of rows) with hnsw.iterative_scan off, relaxed_order
 and strict_order against K1's filtered ground truth; UPDATE churn of
-10,000 rows (dedup attaches them to their elements), DELETE churn of
-10,000 more, VACUUM split into its passes, INSERT of 10,000 new vectors
+5,000 rows (dedup attaches them to their elements), DELETE churn of
+5,000 more, VACUUM split into its passes, INSERT of 5,000 new vectors
 into the freed slots; plain searches after each change, and the device
 programs of that path that have no hand kernel, each with its bound.
+Last, the bit and sparse types on tables of their own: the bit kernels
+K4 (bit_topk) and K5 (bit_point_scores) against their plain versions at
+the 1M sign-bit table's shapes, then binary quantization at 1M (the
+Hamming graph against K4's exact top-10, BQ with a ×4 re-rank against
+K1's float top-10, bit IVFFlat), a Jaccard graph at 200k, BQ on
+sign-informative 512-d data (bench.py's lanes), sparse exact inner
+product at 1M × 4,096 against the merge join, a sparse inner-product
+graph at 24,576 rows, and that phase's device programs without a hand
+kernel.
 
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
@@ -36,6 +45,7 @@ raises and ends the run with a non-zero exit.  Needs one CUDA device.
 """
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -47,6 +57,7 @@ import time
 HBM_BYTES_S = 3.35e12
 TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
 
 
 def bound_ms(nbytes, flops=0.0, rate=F32_FLOPS):
@@ -107,22 +118,30 @@ def profile_search(idx, qs, k, ef, top=8):
             "top_ms": [[name[:72], ms, c] for name, ms, c in kernels[:top]]}
 
 
-def profile_call(fn, top=6):
+def profile_call(fn, top=6, reps=1):
     """CUDA kernels one call of ``fn`` launches, their summed device
     milliseconds and the busiest ``top`` by name (torch.profiler's CUDA
-    kernel events)."""
+    kernel events), averaged over ``reps`` calls in one session.  A
+    session that reports no device event at all (seen on the card for
+    calls that launch kernels) is run again, at most twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    ev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA), key=lambda x: -x[1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted(((e.key, e.self_device_time_total / 1e3 / reps,
+                      e.count / reps)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda x: -x[1])
+        if ev:
+            break
     return (sum(c for _, _, c in ev), sum(ms for _, ms, _ in ev),
             [[name[:72], ms, c] for name, ms, c in ev[:top]])
 
@@ -331,7 +350,7 @@ def ivf_phase(table, qs, gt_d, gt, k, smi):
                "bound_ms": assign_bound, "bound_by": assign_by}]})
 
 
-def live_phase(idx, table, qs, k, recall4, smi, churn=10_000):
+def live_phase(idx, table, qs, k, recall4, smi, churn=5_000):
     """Phase 7: phase 4's index as a live index, as pgvector users drive
     one — filtered reads with and without iterative scans, UPDATE churn
     (delete + insert of the same vectors, which heap-TID dedup attaches to
@@ -697,6 +716,501 @@ def live_phase(idx, table, qs, k, recall4, smi, churn=10_000):
     return launches
 
 
+def bit_sparse_phase(db, qs, k, smi, n, dev):
+    """Phase 8: the bit and sparse types on their own tables.  K4 and K5
+    against their plain versions (equal ids, bitwise-equal distances) at
+    the 1M sign-bit table's shapes; then, with every count at 0, the main
+    path of this slice: binary quantization over the first 200,000 rows
+    (bench.py's BENCH_BIT_N: the Hamming graph, BQ + re-rank against K1's
+    float ground truth; a 1M graph took the smoke past its time limit),
+    bit IVFFlat over all n sign bits, a Jaccard graph over the same 200k
+    sign bits, BQ on sign-informative data (200k × 512), sparse exact
+    inner product at 1M × 4,096 (the densified-tile route through K1)
+    against the merge join, and a sparse inner-product graph at 24,576
+    rows; last, the device programs of this phase that have no hand
+    kernel.  ``n`` rows stand for the 1M parts; the other sets keep their
+    own sizes.  Returns the kernel rows of K4 and K5."""
+    import numpy as np
+    import torch
+
+    from pgvector_tpu_torch import (BinaryQuantizedIndex, BitTable,
+                                    DenseTable, FlatIndex, HNSWIndex,
+                                    IVFFlatIndex, Metric, SparseTable,
+                                    SparseVec, config)
+    from pgvector_tpu_torch.index import hnsw_kernels as K
+    from pgvector_tpu_torch.ops import distance as D
+    from pgvector_tpu_torch.ops.bit_scan import (
+        bit_point_scores, bit_point_scores_plain, bit_topk, bit_topk_plain)
+    from pgvector_tpu_torch.ops.fused_topk import fused_topk, k1_error_bound
+    from pgvector_tpu_torch.utils.telemetry import timers
+    from torch_parity import assert_same_topk
+
+    nq = len(qs)
+    secs = {}
+    t_phase = time.perf_counter()
+
+    def recall_of(r, gt):
+        return sum(len(set(a.tolist()) & set(b.tolist()))
+                   for a, b in zip(r, gt)) / gt.size
+
+    def searched(index, q, ef, **kw):
+        """(distances, ids, qps) of one timed search after a warm-up."""
+        index.search(q, k, ef_search=ef, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_, r_ = index.search(q, k, ef_search=ef, **kw)
+        return d_, r_, len(r_) / (time.perf_counter() - t0)
+
+    # ---- 8.1 K4 and K5 against their plain versions ----------------------
+    t0 = time.perf_counter()
+    qbits = qs > 0
+    words = D.pack_bits(torch.as_tensor(db, device=dev) > 0)  # (n, 4)
+    qw = D.pack_bits(torch.as_tensor(qbits, device=dev))
+    pop = D.popcount_rows(words)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(8)
+    filt = torch.as_tensor(rng.integers(0, 10, n) == 0, device=dev)
+    k4 = []
+    for metric in ("HAMMING", "JACCARD"):
+        for kk in (10, 64):
+            for fname, valid in (("none", ones), ("10%", filt)):
+                m_ = Metric[metric]
+                d1, i1 = bit_topk(m_, qw, words, kk, valid, pop)
+                d0, i0 = bit_topk_plain(m_, qw, words, kk, valid, pop)
+                torch.cuda.synchronize()
+                check(torch.equal(i1, i0) and torch.equal(d1, d0),
+                      f"K4 equals its plain version: {metric} k={kk} "
+                      f"filter {fname}")
+                k4.append({"metric": metric, "k": kk, "filter": fname,
+                           "equal": True,
+                           "max_abs_err": float((d1 - d0)[torch.isfinite(
+                               d0)].abs().max())})
+    k4_ms = cuda_ms(lambda: bit_topk(Metric.HAMMING, qw, words, k, ones))
+    k4_plain_ms = cuda_ms(
+        lambda: bit_topk_plain(Metric.HAMMING, qw, words, k, ones), reps=1)
+    w = words.shape[1]
+    k4_bound, k4_by = bound_ms(4 * (n * w + nq * w) + 8 * nq * k + n,
+                               2.0 * nq * n * 128, INT8_OPS)
+    # the library yardstick: the int8 product of unpacked bits alone, at
+    # 1,000 queries (as K1's beside torch.mm); the port never calls it
+    lib_note = None
+    try:
+        a8 = torch.as_tensor(qbits[:1000], device=dev).to(torch.int8)
+        b8 = torch.as_tensor(db > 0, device=dev).to(torch.int8)
+        k4_lib_ms = cuda_ms(lambda: torch._int_mm(a8, b8.t()))
+        k4_ms_1000 = cuda_ms(lambda: bit_topk(Metric.HAMMING, qw[:1000],
+                                              words, k, ones))
+        del a8, b8
+    except (RuntimeError, TypeError) as e:
+        k4_lib_ms, k4_ms_1000, lib_note = None, None, str(e)[:200]
+    # K5 on hop-shaped blocks: 8,000 queries × 256 rows × 4 words
+    rows = torch.as_tensor(rng.integers(0, n, (nq, 256)), dtype=torch.int32,
+                           device=dev)
+    rows[:, ::17] = -1
+    k5 = []
+    for metric in ("HAMMING", "JACCARD"):
+        s1 = bit_point_scores(Metric[metric], qw, words, rows)
+        s0 = bit_point_scores_plain(Metric[metric], qw, words, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(s1, s0), f"K5 equals its plain version on hop "
+              f"blocks: {metric}")
+        k5.append({"shape": "hop", "metric": metric, "equal": True,
+                   "max_abs_err": float((s1 - s0)[torch.isfinite(s0)]
+                                        .abs().max())})
+    k5_ms = cuda_ms(lambda: bit_point_scores(Metric.HAMMING, qw, words, rows))
+    k5_plain_ms = cuda_ms(
+        lambda: bit_point_scores_plain(Metric.HAMMING, qw, words, rows))
+    live = int((rows >= 0).sum())
+    k5_bound, k5_by = bound_ms(live * w * 4 + rows.numel() * 8 + nq * w * 4,
+                               2.0 * live * 128, INT8_OPS)
+    secs["kernels_vs_plain"] = time.perf_counter() - t0
+    del qw, pop, rows
+
+    # ---- 8.2 binary quantization over the first 200,000 rows -------------
+    # the counts go to 0 here: what follows is this phase's main path
+    fused_topk.launches = bit_topk.launches = bit_point_scores.launches = 0
+    t0 = time.perf_counter()
+    nb = min(200_000, n)
+    table = DenseTable(db.shape[1], capacity=nb, device=dev)
+    table.insert(db[:nb])
+    _, gt_f = FlatIndex(table, Metric.L2, tile=16384).search(qs, k)
+    secs["bq_float_gt"] = time.perf_counter() - t0
+    pair_in = {}
+    orig_pair, orig_sl = K._pairwise_dists, K.search_layer
+
+    def capture_pair(kind, metric, values, elems, sdim=0):
+        if kind == "bit" and elems.shape[0] >= 512 and "elems" not in pair_in:
+            pair_in.update(elems=elems.clone(), metric=metric)
+        return orig_pair(kind, metric, values, elems, sdim)
+
+    bq = BinaryQuantizedIndex(table, Metric.L2, m=16, ef_construction=64,
+                              rerank_factor=4, wave_size=1024, beam_expand=4,
+                              build=False)
+    bit_wave = _profiled_waves(bq.index, orig_sl)
+    K._pairwise_dists = capture_pair
+    timers.reset()
+    timers.enabled = True
+    try:
+        t0 = time.perf_counter()
+        bq.index.build()
+        bq_build_s = time.perf_counter() - t0
+    finally:
+        timers.enabled = False
+        K._pairwise_dists = orig_pair
+        del bq.index._insert_wave
+    bq_phases = {key: v["total_s"] for key, v in timers.report().items()}
+    braw = bq.index
+    braw.beam_expand = 8  # query beam, as bench.py
+    _, gt_h = FlatIndex(bq.shadow, Metric.HAMMING).search(qbits, k)
+    dist, r, raw_qps = searched(braw, qbits, 40)
+    check(r.shape == (nq, k) and np.isfinite(dist).all(),
+          "finite raw Hamming results")
+    raw_rec = recall_of(r, gt_h)
+    d_bq, r_bq, bq_qps = searched(bq, qs, 100)
+    check(np.isfinite(d_bq).all(), "finite BQ + re-rank results")
+    bq_rec = recall_of(r_bq, gt_f)
+    check(raw_rec >= 0.82, f"raw Hamming recall@10 {raw_rec} >= 0.82 at "
+          "ef 40 (reference at 1M: 0.8661)")
+    check(bq_rec >= 0.22, f"BQ ×4 recall@10 {bq_rec} >= 0.22 at ef 100 "
+          "(reference at 1M: 0.2468)")
+    # K5 on the pairwise block of one build wave (level-0 select)
+    check("elems" in pair_in, "captured a build wave's pairwise block")
+    el = pair_in["elems"]
+    t_, c_ = el.shape
+    pq = bq.shadow.data[el.clamp(min=0).reshape(-1).long()]
+    prow = el[:, None, :].expand(t_, c_, c_).reshape(t_ * c_, c_).contiguous()
+    s1 = bit_point_scores(Metric.HAMMING, pq, bq.shadow.data, prow)
+    s0 = bit_point_scores_plain(Metric.HAMMING, pq, bq.shadow.data, prow)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, s0), "K5 equals its plain version on a build "
+          "wave's pairwise block")
+    k5.append({"shape": f"pairwise {t_}x{c_}x{c_}", "metric": "HAMMING",
+               "equal": True, "max_abs_err": 0.0})
+    bit_launches_pairs = 1  # that comparison's launch, taken off below
+    # bit IVFFlat over all n sign bits
+    bits = BitTable(db.shape[1], capacity=n, device=dev)
+    bits.insert_words(words)
+    del words
+    _, gt_hn = FlatIndex(bits, Metric.HAMMING).search(qbits, k)
+    t0 = time.perf_counter()
+    ivf = IVFFlatIndex(bits, Metric.HAMMING, lists=1000, seed=1)
+    ivf_build_s = time.perf_counter() - t0
+    ivf_rows = []
+    for probes in (1, 10):
+        ivf.search(qbits, k, probes=probes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_i, r_i = ivf.search(qbits, k, probes=probes)
+        ivf_rows.append({"probes": probes,
+                         "recall_at_10": recall_of(r_i, gt_hn),
+                         "qps": nq / (time.perf_counter() - t0)})
+    ex = 200
+    d_ex, r_ex = ivf.search(qbits[:ex], k, probes=1000)
+    gd_h, gi_h = FlatIndex(bits, Metric.HAMMING).search(qbits[:ex], k)
+    assert_same_topk(gd_h, gi_h, d_ex, r_ex, atol=0.0, rtol=0.0)
+    del ivf, bits
+    emit({"phase": "bit_bq", "nvidia_smi": smi, "n": nb, "queries": nq,
+          "build_s": bq_build_s, "build_phases": bq_phases,
+          "raw_hamming": {"ef": 40, "recall_at_10": raw_rec, "qps": raw_qps,
+                          "layer0_hops": braw._last_scan_steps,
+                          "reference_1m": 0.8661},
+          "bq_rerank": {"ef": 100, "rerank_factor": 4,
+                        "recall_at_10_vs_float_gt": bq_rec, "qps": bq_qps,
+                        "reference_1m": 0.2468},
+          "ivf": {"n": n, "lists": 1000, "build_s": ivf_build_s,
+                  "sweep": ivf_rows, "exhaustive_equals_k4": True,
+                  "exhaustive_queries": ex}})
+    # ---- 8.3 Jaccard: its own graph over the same 200k sign bits ---------
+    t0 = time.perf_counter()
+    jt = bq.shadow
+    _, gt_j = FlatIndex(jt, Metric.JACCARD).search(qbits, k)
+    jidx = HNSWIndex(jt, Metric.JACCARD, m=16, ef_construction=64,
+                     wave_size=1024, dedup=False, beam_expand=4)
+    j_build = time.perf_counter() - t0
+    jidx.beam_expand = 8
+    _, r_j, j_qps = searched(jidx, qbits, 40)
+    j_rec = recall_of(r_j, gt_j)
+    check(j_rec >= 0.94, f"Jaccard recall@10 {j_rec} >= 0.94 at ef 40 "
+          "(reference 0.9736)")
+    del jidx, jt, bq, braw, table
+    torch.cuda.empty_cache()
+
+    # ---- 8.4 BQ on sign-informative data (bench.py:768-811) --------------
+    t0 = time.perf_counter()
+    sg_n, sdim_bq = 200_000, 512
+    sncl = sg_n // 25
+    rng_bq = np.random.default_rng(9)
+    s_centers = rng_bq.normal(size=(sncl, sdim_bq)).astype(np.float32) * 1.5
+    sdb = np.empty((sg_n, sdim_bq), np.float32)
+    for s in range(0, sg_n, 100_000):
+        e = min(s + 100_000, sg_n)
+        sdb[s:e] = (s_centers[rng_bq.integers(0, sncl, e - s)]
+                    + rng_bq.normal(size=(e - s, sdim_bq)).astype(np.float32))
+    sqs = (s_centers[rng_bq.integers(0, sncl, nq)]
+           + rng_bq.normal(size=(nq, sdim_bq)).astype(np.float32))
+    stab = DenseTable(sdim_bq, capacity=sg_n, device=dev)
+    stab.insert(sdb)
+    _, sg_gt = FlatIndex(stab, Metric.L2, tile=16384).search(sqs, k)
+    sbq = BinaryQuantizedIndex(stab, Metric.L2, m=16, ef_construction=64,
+                               rerank_factor=4, wave_size=1024, beam_expand=4)
+    sg_build = time.perf_counter() - t0
+    sbq.index.beam_expand = 8
+    _, r_s, sg_qps = searched(sbq, sqs, 100)
+    sg_rec = recall_of(r_s, sg_gt)
+    check(sg_rec >= 0.97, f"sign-informative BQ recall@10 {sg_rec} >= 0.97 "
+          "(reference 0.9903)")
+    del sbq, stab, sdb
+    torch.cuda.empty_cache()
+    emit({"phase": "bit_jaccard_signful", "nvidia_smi": smi,
+          "jaccard": {"n": nb, "ef": 40, "recall_at_10": j_rec, "qps": j_qps,
+                      "seconds": j_build, "reference": 0.9736},
+          "bq_signful": {"n": sg_n, "dim": sdim_bq, "clusters": sncl,
+                         "ef": 100, "rerank_factor": 4,
+                         "recall_at_10_vs_float_gt": sg_rec, "qps": sg_qps,
+                         "seconds": sg_build, "reference": 0.9903}})
+
+    # ---- 8.5 sparse exact inner product at n × 4,096, nnz 32 ------------
+    t0 = time.perf_counter()
+    sdim, snnz, sq_n = 4096, 32, 4000
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def sparse_rows(count):
+        idx = torch.empty((count, snnz), dtype=torch.int32, device=dev)
+        for s in range(0, count, 65536):
+            e = min(s + 65536, count)
+            keys = torch.rand((e - s, sdim), generator=g, device=dev)
+            idx[s:e] = torch.sort(torch.topk(keys, snnz, dim=1).indices,
+                                  dim=1).values.to(torch.int32)
+        val = torch.randn((count, snnz), generator=g, device=dev)
+        return idx, torch.where(val == 0, 1.0, val)
+
+    sp = SparseTable(sdim, nnz_cap=snnz, capacity=n, device=dev)
+    sp.insert_arrays(*sparse_rows(n))
+    qi, qv = (t.cpu().numpy() for t in sparse_rows(sq_n))
+    squeries = [SparseVec(sdim, qi[i], qv[i], _checked=True)
+                for i in range(sq_n)]
+    gen_s = time.perf_counter() - t0
+    flat = FlatIndex(sp, Metric.IP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd1, si1 = flat.search(squeries, k)
+    sparse_exact_s = time.perf_counter() - t0
+    check(flat.last_path == "densified-tile", f"the 1M sparse scan took "
+          f"the densified-tile route ({flat.last_path})")
+    chk = 200
+    old = {v: os.environ.get(v) for v in ("PGVECTOR_TPU_SPARSE_DENSIFY_GB",
+                                           "PGVECTOR_TPU_SPARSE_TILE_BYTES")}
+    os.environ["PGVECTOR_TPU_SPARSE_DENSIFY_GB"] = "0"
+    os.environ["PGVECTOR_TPU_SPARSE_TILE_BYTES"] = "1024"
+    try:
+        mj = FlatIndex(sp, Metric.IP)
+        sd0, si0 = mj.search(squeries[:chk], k)
+        check(mj.last_path == "merge-join", "the check took the merge join")
+    finally:
+        for v, x in old.items():
+            if x is None:
+                os.environ.pop(v)
+            else:
+                os.environ[v] = x
+    # K1's bound on both results' rows (the IP score is half K1's)
+    ids = np.concatenate([si0, si1[:chk]], axis=0)
+    both = torch.as_tensor(np.maximum(ids, 0), device=dev).long().reshape(-1)
+    rows_d = D.scatter_dense(sp.idx[both], sp.val[both], sdim)[:, :sdim]
+    loc = torch.arange(both.numel(), device=dev).reshape(ids.shape)
+    q_d = flat._dense_sparse_queries(squeries[:chk])
+    zeros = torch.zeros(both.numel(), device=dev)
+    loc0 = torch.where(torch.as_tensor(si0, device=dev) >= 0, loc[:chk], -1)
+    loc1 = torch.where(torch.as_tensor(si1[:chk], device=dev) >= 0,
+                       loc[chk:], -1)
+    bound = 0.5 * k1_error_bound(q_d, rows_d, zeros, loc0, loc1)
+    assert_same_topk(sd0, si0, sd1[:chk], si1[:chk],
+                     atol=bound.cpu().numpy(), rtol=0.0)
+    fin = np.isfinite(sd0)
+    sp_err = float(np.abs(sd1[:chk][fin] - sd0[fin]).max())
+    del rows_d, q_d
+
+    # ---- 8.6 sparse inner-product HNSW at 24,576 rows --------------------
+    t0 = time.perf_counter()
+    ns = 24_576
+    st = SparseTable(sdim, nnz_cap=snnz, capacity=ns, device=dev)
+    st.insert_arrays(sp.idx[:ns], sp.val[:ns], _checked=True)
+    _, gt_s = FlatIndex(st, Metric.IP).search(squeries, k)
+    s_exact_s = time.perf_counter() - t0
+    with config.local(**{"hnsw.sparse_pair_bytes": 512 << 20}):
+        sidx = HNSWIndex(st, Metric.IP, m=16, ef_construction=64,
+                         wave_size=1024, dedup=False, beam_expand=4,
+                         build=False)
+        sparse_wave = _profiled_waves(sidx, orig_sl)
+        t0 = time.perf_counter()
+        try:
+            sidx.build()
+        finally:
+            del sidx._insert_wave
+        s_build = time.perf_counter() - t0
+        wave_eff = sidx._wave_eff
+    sidx.beam_expand = 8
+    s_sweep = []
+    floors = {40: 0.65, 100: 0.83}  # the reference: 0.6967 and 0.8694
+    for ef in (40, 100):
+        _, r_sp, qps_sp = searched(sidx, squeries, ef)
+        rec = recall_of(r_sp, gt_s)
+        s_sweep.append({"ef": ef, "recall_at_10": rec, "qps": qps_sp})
+        check(rec >= floors[ef], f"sparse IP recall@10 {rec} >= "
+              f"{floors[ef]} at ef {ef}")
+    launches = {"fused_topk": fused_topk.launches,
+                "bit_topk": bit_topk.launches,
+                "bit_point_scores": bit_point_scores.launches
+                - bit_launches_pairs}
+    check(launches["bit_topk"] > 0 and launches["bit_point_scores"] > 0
+          and launches["fused_topk"] > 0,
+          f"the bit and sparse paths went through K4, K5 and K1: {launches}")
+    emit({"phase": "sparse", "nvidia_smi": smi,
+          "exact": {"n": n, "dim": sdim, "nnz": snnz, "queries": sq_n,
+                    "route": "densified-tile", "s": sparse_exact_s,
+                    "data_s": gen_s, "checked_queries": chk,
+                    "max_abs_err_vs_merge_join": sp_err,
+                    "tolerance": "k1_error_bound / 2"},
+          "hnsw": {"n": ns, "build_s": s_build, "exact_gt_s": s_exact_s,
+                   "wave": wave_eff, "sparse_pair_bytes": 512 << 20,
+                   "sweep": s_sweep, "reference": [0.6967, 0.8694]},
+          "launches": launches})
+
+    # ---- 8.7 the device programs of this phase without a hand kernel ----
+    progs = []
+    svals = (sidx.values[0], sidx.values[1])
+    qrep = sidx._query_rep(squeries)
+    scorer = K.make_scorer("sparse", Metric.IP, svals, sidx._scorer_sdim())
+    hop_rows = torch.as_tensor(rng.integers(0, ns, (sq_n, 256)),
+                               dtype=torch.int32, device=dev)
+    kern, _, top = profile_call(lambda: scorer(qrep, hop_rows), reps=5)
+    b_, by_ = bound_ms(hop_rows.numel() * (snnz * 8 + 8) + sq_n * snnz * 8,
+                       2.0 * hop_rows.numel() * snnz)
+    progs.append({"name": "sparse hop scorer (make_scorer, densified "
+                  "query, 4,000 x 256 rows)",
+                  "ms": cuda_ms(lambda: scorer(qrep, hop_rows)),
+                  "cuda_kernels": kern, "bound_ms": b_, "bound_by": by_,
+                  "top_kernels_ms": top})
+    c_s = sidx.ef_construction + sidx.m
+    pel = torch.as_tensor(np.stack([rng.choice(ns, c_s, replace=False)
+                                    for _ in range(wave_eff)]),
+                          dtype=torch.int32, device=dev)
+    pair_sdim = sidx._pair_sdim()
+
+    def pair():
+        return K._pairwise_dists("sparse", Metric.IP, svals, pel, pair_sdim)
+
+    kern, _, top = profile_call(pair, reps=5)
+    b_, by_ = bound_ms(pel.numel() * snnz * 8 + pel.numel() * c_s * 4,
+                       2.0 * pel.numel() * c_s * snnz)
+    progs.append({"name": f"sparse pairwise block (_pairwise_dists, "
+                  f"densified, {wave_eff} x {c_s} x {c_s})",
+                  "ms": cuda_ms(pair), "cuda_kernels": kern,
+                  "bound_ms": b_, "bound_by": by_, "top_kernels_ms": top})
+    tile = 8192
+
+    def densify():
+        return D.scatter_dense(sp.idx[:tile], sp.val[:tile], sdim)
+
+    kern, _, top = profile_call(densify, reps=5)
+    b_, by_ = bound_ms(tile * snnz * 8 + tile * (sdim + 1) * 4)
+    progs.append({"name": f"densify of one tile (scatter_dense, {tile} rows)",
+                  "ms": cuda_ms(densify), "cuda_kernels": kern,
+                  "calls": -(-n // tile), "bound_ms": b_, "bound_by": by_,
+                  "top_kernels_ms": top})
+    progs.append(_wave_row("bit build wave", bit_wave, 4 * w, 128,
+                           INT8_OPS, 80))
+    progs.append(_wave_row("sparse build wave", sparse_wave, snnz * 8, snnz,
+                           F32_FLOPS, c_s))
+    secs["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "bit_sparse_programs", "nvidia_smi": smi,
+          "programs": progs, "seconds": secs})
+    del sidx, st, sp
+    torch.cuda.empty_cache()
+    return [
+        {"name": "bit_topk", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/bit_scan.cu",
+         "replaces": "pgvector_tpu/ops/distance.py:144 (bit_scores under "
+                     "tiled_topk; an XLA program, no Pallas kernel)",
+         "launches": launches["bit_topk"], "on_main_path": True,
+         "max_abs_err": max(c["max_abs_err"] for c in k4),
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": k4_lib_ms, "library_queries": 1000,
+         "ms_at_library_queries": k4_ms_1000, "library_note": lib_note,
+         "cases": k4},
+        {"name": "bit_point_scores", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/bit_scan.cu",
+         "replaces": "pgvector_tpu/index/hnsw_kernels.py:104 (the bit "
+                     "scorer and pairwise block; XLA programs, no Pallas "
+                     "kernel)",
+         "launches": launches["bit_point_scores"], "on_main_path": True,
+         "max_abs_err": max(c["max_abs_err"] for c in k5),
+         "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
+         "cases": k5},
+    ]
+
+
+def _profiled_waves(index, orig_sl):
+    """Wrap ``index._insert_wave`` for a build: the middle wave through
+    torch.profiler (with the candidates its beams could score), every
+    other wave timed alone, synchronized on both sides.  Returns the dict
+    the wrapper fills."""
+    import torch
+
+    from pgvector_tpu_torch.index import hnsw_kernels as K
+
+    out = {"ms": [], "calls": 0}
+    fn = index._insert_wave
+    rows = index.table.count
+    middle = max(rows // max(index._effective_wave_size(), 1) // 2, 1)
+    m2 = 2 * index.m
+
+    def call(elems, lv):
+        out["calls"] += 1
+        if out["calls"] != middle:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(elems, lv)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            return
+        cands = [0]
+
+        def sl(*sa, **skw):
+            res = orig_sl(*sa, **skw)
+            cands[0] += res[2] * sa[3].shape[0] * skw.get("expand", 1) * m2
+            return res
+
+        K.search_layer = sl
+        try:
+            kern, kern_ms, top = profile_call(lambda: fn(elems, lv))
+        finally:
+            K.search_layer = orig_sl
+        out.update(elements=len(elems), kernels=kern, kernel_ms=kern_ms,
+                   top_ms=top, candidates=cands[0])
+
+    index._insert_wave = call
+    return out
+
+
+def _wave_row(name, p, row_bytes, op_width, rate, c):
+    """A build wave: ms the mean of the waves timed alone; kernels and the
+    bound from the profiled middle wave, counting every expanded node's 2m
+    neighbours scored once and the select's pairwise block."""
+    import numpy as np
+
+    b = p["elements"]
+    w_bound, w_by = bound_ms(p["candidates"] * row_bytes + b * c * row_bytes,
+                             2.0 * op_width * (p["candidates"] + b * c * c),
+                             rate)
+    return {"name": name, "ms": float(np.mean(p["ms"])),
+            "ms_max": float(np.max(p["ms"])), "cuda_kernels": p["kernels"],
+            "kernel_ms_profiled": p["kernel_ms"], "calls": p["calls"],
+            "elements_profiled": b, "bound_ms": w_bound, "bound_by": w_by,
+            "top_kernels_ms": p["top_ms"]}
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -967,9 +1481,18 @@ def main():
     torch.cuda.empty_cache()
     ivf_phase(table, qs, gt_d, gt, k, smi)
 
-    # ---- 7. the HNSW index as a live index (last: it changes the table) --
+    # ---- 7. the HNSW index as a live index (it changes the table) --------
     live_phase(idx, table, qs, k, {s["ef"]: s["recall_at_10"] for s in sweep},
                smi)
+
+    # ---- 8. the bit and sparse types, on tables of their own -------------
+    # free phase 4's index with its slab cache (the captured hop states
+    # hold it too) and the churned table first
+    idx._nbr_vals = None
+    del idx, table, flat, data, sq, qs_dev, states, st, pd, pi, b, b_user
+    gc.collect()
+    torch.cuda.empty_cache()
+    bit_rows = bit_sparse_phase(db, qs, k, smi, args.n, dev)
 
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",
@@ -995,6 +1518,7 @@ def main():
          "max_abs_err": max(c["max_abs_err"] for c in k2_tail),
          "ms": k2_tail[-1]["ms"], "plain_ms": k2_tail[-1]["plain_ms"],
          "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None},
+        *bit_rows,
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,24 @@
 """pgvector_tpu_torch — the PyTorch / CUDA port of ``pgvector_tpu``.
 
 The same engine as the JAX package (reference: pgvector/pgvector 0.8.6),
-on torch tensors: dense tables on the card (or a ``device`` the caller
-names, such as ``"cpu"``), exact search, HNSW and IVFFlat, and checkpoints
-in the JAX package's directory format, with the JAX package's
-two Pallas kernels as hand-written CUDA kernels for Hopper (``csrc/``;
-built with ``nvcc`` at first use):
+on torch tensors: dense, bit and sparse tables on the card (or a
+``device`` the caller names, such as ``"cpu"``), exact search, HNSW,
+IVFFlat (dense and bit), the re-ranking pipelines (binary quantization,
+subvectors, expression indexes), and checkpoints in the JAX package's
+directory format, with the JAX package's two Pallas kernels as
+hand-written CUDA kernels for Hopper (``csrc/``; built with ``nvcc`` at
+first use):
 
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
   (3xTF32 on the tensor cores)
 - K2 :mod:`pgvector_tpu_torch.ops.packed_hop` — one HNSW beam-search hop
   (neighbor ids, slab scores and the hop tail); the tail alone is
   :mod:`pgvector_tpu_torch.ops.hop_tail`
+
+and two more for the bit type, whose popcounts the JAX package left to
+XLA (:mod:`pgvector_tpu_torch.ops.bit_scan`): K4 ``bit_topk``, the exact
+Hamming / Jaccard top-k, and K5 ``bit_point_scores``, the distances to
+gathered rows.
 
 Each kernel has a plain PyTorch version of the same function, used for
 CPU tensors.  The package imports neither ``jax`` nor ``pgvector_tpu``.
@@ -40,14 +47,25 @@ from .errors import (  # noqa: E402
 from .types import (  # noqa: E402
     Vector,
     HalfVec,
+    SparseVec,
+    Bit,
     VECTOR_MAX_DIM,
     HALFVEC_MAX_DIM,
+    SPARSEVEC_MAX_DIM,
+    SPARSEVEC_MAX_NNZ,
+    BITVEC_MAX_DIM,
 )
 from .ops.metric import Metric  # noqa: E402
-from .store.table import DenseTable  # noqa: E402
+from .store.table import BitTable, DenseTable, SparseTable  # noqa: E402
 from .index.flat import FlatIndex  # noqa: E402
 from .index.hnsw import HNSWIndex  # noqa: E402
 from .index.ivfflat import IVFFlatIndex  # noqa: E402
+from .rerank import (  # noqa: E402
+    BinaryQuantizedIndex,
+    ExpressionIndex,
+    SubvectorIndex,
+    exact_rerank,
+)
 
 __version__ = "0.1.0"
 
@@ -58,8 +76,16 @@ __all__ = [
     "HNSWIndex",
     "IVFFlatIndex",
     "DenseTable",
+    "BitTable",
+    "SparseTable",
+    "BinaryQuantizedIndex",
+    "ExpressionIndex",
+    "SubvectorIndex",
+    "exact_rerank",
     "Vector",
     "HalfVec",
+    "SparseVec",
+    "Bit",
     "VectorError",
     "DataException",
     "InvalidTextRepresentation",
@@ -70,4 +96,7 @@ __all__ = [
     "InternalError",
     "VECTOR_MAX_DIM",
     "HALFVEC_MAX_DIM",
+    "SPARSEVEC_MAX_DIM",
+    "SPARSEVEC_MAX_NNZ",
+    "BITVEC_MAX_DIM",
 ]

@@ -50,6 +50,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "topk_fold.cuh"
+
 namespace {
 
 constexpr int BQ = 128;        // queries per block
@@ -59,8 +61,8 @@ constexpr int SK = DK + 4;     // padded smem row: fragment loads hit 32 banks
 constexpr int SC = BR + 8;     // score tile row: float2 stores conflict-free
 constexpr int TILE = BQ * SK;  // floats in one chunk buffer (BQ == BR)
 constexpr int THREADS = 256;
-constexpr int MAX_K = 64;
-constexpr int MAX_SPLITS = 64;
+constexpr int MAX_K = TOPK_MAX_K;
+constexpr int MAX_SPLITS = TOPK_MAX_SPLITS;
 static_assert(BQ == BR, "one chunk buffer size serves queries and rows");
 
 __device__ __forceinline__ float tf32(float x) {
@@ -278,59 +280,8 @@ topk_pass1(const float* __restrict__ qs, const float* __restrict__ db,
       const int qq = qb + __ffs(todo) - 1;
       todo &= todo - 1;
       if (q0 + qq >= nq) break;  // uniform across the warp
-      float* bd = s_bd + qq * k;
-      int* bi = s_bi + qq * k;
-      // the list in registers: entry `lane` in (va, ia), `lane + 32` in
-      // (vb, ib); an insert is a rank ballot and a shuffle up
-      const bool la = lane < k, lb = lane + 32 < k;
-      float va = la ? bd[lane] : CUDART_INF_F;
-      float vb = lb ? bd[lane + 32] : CUDART_INF_F;
-      int ia = la ? bi[lane] : -1, ib = lb ? bi[lane + 32] : -1;
-      float thr = __shfl_sync(0xffffffffu, k > 32 ? vb : va, (k - 1) & 31);
-      float sv[BR / 32];
-#pragma unroll
-      for (int h = 0; h < BR / 32; ++h) sv[h] = s_sc[qq * SC + 32 * h + lane];
-      bool changed = false;
-#pragma unroll
-      for (int h = 0; h < BR / 32; ++h) {
-        unsigned mask = __ballot_sync(0xffffffffu, sv[h] < thr);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float cd = __shfl_sync(0xffffffffu, sv[h], src);
-          if (!(cd < thr)) continue;  // the list tightened meanwhile
-          const int cid = r0 + 32 * h + src;
-          // rank: entries at or below cd stay ahead (their ids are lower)
-          const int rank =
-              __popc(__ballot_sync(0xffffffffu, la && va <= cd)) +
-              __popc(__ballot_sync(0xffffffffu, lb && vb <= cd));
-          // entries from rank on move up by one
-          const float pa = __shfl_up_sync(0xffffffffu, va, 1);
-          const int pia = __shfl_up_sync(0xffffffffu, ia, 1);
-          float pb = __shfl_up_sync(0xffffffffu, vb, 1);
-          int pib = __shfl_up_sync(0xffffffffu, ib, 1);
-          const float a31 = __shfl_sync(0xffffffffu, va, 31);
-          const int i31 = __shfl_sync(0xffffffffu, ia, 31);
-          if (lane == 0) {
-            pb = a31;
-            pib = i31;
-          }
-          if (lane >= rank) {
-            va = lane == rank ? cd : pa;
-            ia = lane == rank ? cid : pia;
-          }
-          if (lane + 32 >= rank) {
-            vb = lane + 32 == rank ? cd : pb;
-            ib = lane + 32 == rank ? cid : pib;
-          }
-          thr = __shfl_sync(0xffffffffu, k > 32 ? vb : va, (k - 1) & 31);
-          changed = true;
-        }
-      }
-      if (changed) {
-        if (la) { bd[lane] = va; bi[lane] = ia; }
-        if (lb) { bd[lane + 32] = vb; bi[lane + 32] = ib; }
-      }
+      fold_row<BR / 32>(s_sc + qq * SC, r0, s_bd + qq * k, s_bi + qq * k,
+                        k, lane);
     }
     // the next step's barrier orders this fold before the next tile's
     // scores overwrite s_sc
@@ -344,35 +295,6 @@ topk_pass1(const float* __restrict__ qs, const float* __restrict__ db,
       part_d[o] = s_bd[e];
       part_i[o] = s_bi[e];
     }
-  }
-}
-
-__global__ void topk_merge(const float* __restrict__ part_d,
-                           const int* __restrict__ part_i, int nq, int k,
-                           int splits, float* __restrict__ out_d,
-                           int* __restrict__ out_i) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= nq) return;
-  int head[MAX_SPLITS];
-  for (int s = 0; s < splits; ++s) head[s] = 0;
-  for (int o = 0; o < k; ++o) {
-    int best = 0;
-    float bd = CUDART_INF_F;
-    int bid = 0x7fffffff;
-    for (int s = 0; s < splits; ++s) {
-      if (head[s] >= k) continue;
-      const size_t at = ((size_t)s * nq + q) * k + head[s];
-      const float dv = part_d[at];
-      const int iv = part_i[at];
-      if (dv < bd || (dv == bd && iv < bid)) {
-        bd = dv;
-        bid = iv;
-        best = s;
-      }
-    }
-    head[best] += 1;
-    out_d[(size_t)q * k + o] = bd;
-    out_i[(size_t)q * k + o] = isinf(bd) ? -1 : bid;
   }
 }
 
@@ -401,7 +323,6 @@ extern "C" int pgvt_fused_topk(const float* qs, const float* db,
                                            part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  topk_merge<<<(nq + 127) / 128, 128, 0, st>>>(part_d, part_i, nq, k, splits,
-                                               out_d, out_i);
-  return (int)cudaGetLastError();
+  return (int)launch_topk_merge(part_d, part_i, nq, k, splits, out_d, out_i,
+                                st);
 }

@@ -1,11 +1,14 @@
-"""HNSW index over a dense table — counterpart of
+"""HNSW index over a dense, bit or sparse table — counterpart of
 ``pgvector_tpu.index.hnsw``: build, insert, heap-TID dedup, search with
 and without iterative scans, and the 4-pass vacuum.
 
 Graph layout, as in the reference:
 
-- ``values``    — the index's vector copies (normalized for cosine); they
-                  alias the table's tensor when rows map 1:1 to elements
+- ``values``    — the index's value copies (normalized for cosine): a
+                  (cap, D) tensor (dense), (cap, W) int32 words (bit) or
+                  an (idx, val) pair of padded (cap, P) rows (sparse);
+                  they alias the table's tensors when rows map 1:1 to
+                  elements
 - ``nbr0``      — int32[cap, 2m] level-0 neighbors
 - ``nbr_up``    — int32[cap_up, L, m] upper-level neighbors of the ~1/m
                   elements with level ≥ 1 (``up_slot`` maps element → row)
@@ -24,8 +27,9 @@ packages give every element the same slot and level.  With ``dedup``
 to 10 heap TIDs.
 
 Search is Algorithm 5 (hnswscan.c:25-56).  On CUDA tables the layer-0 scan
-reads an adjacency-packed copy of the neighbor values (f32 or bf16, sized
-to the card's memory) and runs each hop in K2.  ``hnsw.iterative_scan``
+of a dense index reads an adjacency-packed copy of the neighbor values
+(f32 or bf16, sized to the card's memory) and runs each hop in K2; bit
+and sparse hops gather rows (bit distances in K5).  ``hnsw.iterative_scan``
 resumes exhausted searches from their discarded candidates with a
 persistent visited set, on row gathers, as the reference does.
 
@@ -33,8 +37,7 @@ Vacuum is the reference's 4 passes (hnswvacuum.c:777-797): drop dead TIDs,
 repair the lists that pointed at deleted elements by re-searching, check,
 then free the slots.
 
-Not ported yet: the int8 and sketch packed tiers, and the bit and sparse
-kinds.
+Not ported yet: the int8 and sketch packed tiers.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ import torch
 from ..config import config
 from ..errors import (DataException, FeatureNotSupported, InternalError,
                       InvalidParameterValue)
+from ..ops.distance import SPARSE_PAD
 from ..ops.metric import Metric, stored_to_user
-from ..store.table import DenseTable
+from ..store.table import BitTable, DenseTable, SparseTable
 from ..utils.stats import ScanStats
 from ..utils.telemetry import Progress, timers
 from . import hnsw_kernels as K
@@ -64,6 +68,8 @@ MIN_EF_CONSTRUCTION, MAX_EF_CONSTRUCTION = 4, 1000
 #: per-type dimension caps (hnswutils.c:1375-1431, hnsw.h:33-34)
 MAX_DIM_F32 = 2000
 MAX_DIM_F16 = 4000
+MAX_DIM_BIT = 64000
+MAX_NNZ_SPARSE = 1000
 
 #: heap TIDs per element (hnsw.h:69)
 HEAPTIDS = 10
@@ -72,13 +78,16 @@ HEAPTIDS = 10
 L_MAX = 12
 
 DENSE_OPCLASSES = (Metric.L2, Metric.IP, Metric.COSINE, Metric.L1)
+BIT_OPCLASSES = (Metric.HAMMING, Metric.JACCARD)
+SPARSE_OPCLASSES = (Metric.L2, Metric.IP, Metric.COSINE, Metric.L1)
 
 #: PGVECTOR_TPU_PACKED_SCAN modes of the reference that the port takes
 PACKED_MODES = ("auto", "off", "f32", "bf16")
 
 
 class HNSWIndex:
-    """An HNSW access method over a DenseTable, on the table's device."""
+    """An HNSW access method over a DenseTable, BitTable or SparseTable,
+    on the table's device."""
 
     def __init__(
         self,
@@ -105,16 +114,34 @@ class HNSWIndex:
         if ef_construction < 2 * m:
             # hnswbuild.c:713-716
             raise DataException("ef_construction must be greater than or equal to 2 * m")
-        if not isinstance(table, DenseTable):
+        if isinstance(table, DenseTable):
+            self.kind = "dense"
+            if metric not in DENSE_OPCLASSES:
+                raise FeatureNotSupported(
+                    f"operator {metric.op} is not supported by hnsw for vectors")
+            cap = MAX_DIM_F16 if table.dtype != torch.float32 else MAX_DIM_F32
+            if table.dim > cap:
+                raise DataException(
+                    f"column cannot have more than {cap} dimensions for hnsw index")
+        elif isinstance(table, BitTable):
+            self.kind = "bit"
+            if metric not in BIT_OPCLASSES:
+                raise FeatureNotSupported(
+                    f"operator {metric.op} is not supported by hnsw for bit vectors")
+            if table.dim > MAX_DIM_BIT:
+                raise DataException(
+                    f"column cannot have more than {MAX_DIM_BIT} dimensions for hnsw index")
+        elif isinstance(table, SparseTable):
+            self.kind = "sparse"
+            if metric not in SPARSE_OPCLASSES:
+                raise FeatureNotSupported(
+                    f"operator {metric.op} is not supported by hnsw for sparse vectors")
+            if table.nnz_cap > MAX_NNZ_SPARSE:
+                raise DataException(
+                    f"sparsevec cannot have more than {MAX_NNZ_SPARSE} non-zero elements for hnsw index")
+        else:
             raise FeatureNotSupported(
-                f"hnsw over {type(table).__name__} is not ported yet")
-        if metric not in DENSE_OPCLASSES:
-            raise FeatureNotSupported(
-                f"operator {metric.op} is not supported by hnsw for vectors")
-        cap = MAX_DIM_F16 if table.dtype != torch.float32 else MAX_DIM_F32
-        if table.dim > cap:
-            raise DataException(
-                f"column cannot have more than {cap} dimensions for hnsw index")
+                f"hnsw does not support {type(table).__name__}")
         self.table = table
         self.device = table.device
         self.metric = metric
@@ -161,18 +188,30 @@ class HNSWIndex:
         self.cap_e = capacity
         self.cap_u = max(capacity // max(self.m // 2, 1), 64)
         # a 16-bit table's index stores 16-bit values; scoring is f32
-        self._val_dtype = (t.dtype if t.dtype in (torch.bfloat16, torch.float16)
+        dense = self.kind == "dense"
+        self._val_dtype = (t.dtype if dense and t.dtype in (torch.bfloat16,
+                                                            torch.float16)
                            else torch.float32)
-        # the index's vector copy aliases the table's tensor while rows map
+        # the index's value copy aliases the table's tensors while rows map
         # 1:1 to elements and values are stored unmodified (not cosine)
-        self._alias_values = (self.metric is not Metric.COSINE
-                              and self._val_dtype == t.dtype
-                              and self._table_rows() >= capacity)
+        self._alias_values = (
+            not (dense and self.metric is Metric.COSINE)
+            and (not dense or self._val_dtype == t.dtype)
+            and self._table_rows() >= capacity)
         if self._alias_values:
             self._refresh_alias()
-        else:
+        elif dense:
             self.values = torch.zeros((capacity, t.dim), dtype=self._val_dtype,
                                       device=dev)
+        elif self.kind == "bit":
+            self.values = torch.zeros((capacity, t.words), dtype=torch.int32,
+                                      device=dev)
+        else:
+            self.values = (
+                torch.full((capacity, t.nnz_cap), SPARSE_PAD,
+                           dtype=torch.int32, device=dev),
+                torch.zeros((capacity, t.nnz_cap), dtype=torch.float32,
+                            device=dev))
         self.nbr0 = torch.full((capacity, 2 * self.m), -1, dtype=torch.int32,
                                device=dev)
         self.nbr_up = torch.full((self.cap_u, self._l_unroll, self.m), -1,
@@ -203,13 +242,27 @@ class HNSWIndex:
         self.last_vacuum = {"deleted": 0, "repaired": 0}
 
     def _table_rows(self) -> int:
-        return int(self.table.data.shape[0])
+        t = self.table
+        return int((t.idx if self.kind == "sparse" else t.data).shape[0])
 
     def _refresh_alias(self) -> None:
-        """Re-point aliased values at the table's current tensor (growth
-        replaces it)."""
+        """Re-point aliased values at the table's current tensors (growth
+        replaces them)."""
         if self._alias_values:
-            self.values = self.table.data
+            t = self.table
+            self.values = (t.idx, t.val) if self.kind == "sparse" else t.data
+
+    def _value_arrays(self) -> tuple:
+        """The value arrays as a tuple, whatever the kind (sparse: idx,
+        val)."""
+        return self.values if self.kind == "sparse" else (self.values,)
+
+    def _set_value_arrays(self, arrays) -> None:
+        self.values = tuple(arrays) if self.kind == "sparse" else arrays[0]
+
+    def _value_fills(self) -> tuple:
+        """What a free slot holds: SPARSE_PAD and 0 for sparse, 0 else."""
+        return (SPARSE_PAD, 0.0) if self.kind == "sparse" else (0,)
 
     def _materialize_values(self) -> None:
         """Break the table alias: gather every element its own value copy
@@ -221,9 +274,10 @@ class HNSWIndex:
         rows = torch.as_tensor(np.maximum(self.elem_rows[:, 0], 0)
                                .astype(np.int64), device=self.device)
         live = torch.as_tensor(self.elem_rows[:, 0] >= 0, device=self.device)
-        self.values = torch.where(live[:, None], self.values[rows],
-                                  torch.zeros((), dtype=self.values.dtype,
-                                              device=self.device))
+        self._set_value_arrays([
+            torch.where(live[:, None], a[rows],
+                        torch.full((), f, dtype=a.dtype, device=self.device))
+            for a, f in zip(self._value_arrays(), self._value_fills())])
         self._alias_values = False
 
     def _ensure_unroll_depth(self, depth: int) -> None:
@@ -254,11 +308,16 @@ class HNSWIndex:
             torch.cuda.synchronize(self.device)
 
     # ----------------------------------------------------------- index values
-    def _form_values(self, rows: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
+    def _form_values(self, rows: np.ndarray):
         """HnswFormIndexValue (hnswutils.c:406-428): fetch and normalize
         (cosine) the rows' values.  Returns (values, keep mask) — zero-norm
         rows are not indexed for cosine (hnswutils.c:417-423)."""
         r = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        keep_all = np.ones(len(rows), bool)
+        if self.kind == "bit":
+            return self.table.data[r], keep_all
+        if self.kind == "sparse":
+            return (self.table.idx[r], self.table.val[r]), keep_all
         vals = self.table.data[r]
         if self.metric is Metric.COSINE:
             vals = vals.float()
@@ -266,13 +325,26 @@ class HNSWIndex:
             keep = (norms[:, 0] > 0).cpu().numpy()
             vals = vals / torch.clamp(norms, min=1e-30)
             return vals.to(self._val_dtype), keep
-        return vals.to(self._val_dtype), np.ones(len(rows), bool)
+        return vals.to(self._val_dtype), keep_all
 
-    def _query_rep(self, q) -> torch.Tensor:
-        """GetScanValue (hnswscan.c:92-114): coerce + normalize queries."""
-        from .flat import _coerce_dense_queries
+    def _query_rep(self, q):
+        """GetScanValue (hnswscan.c:92-114): coerce + normalize queries —
+        (Q, D) values, (Q, W) packed words, or sparse (q_idx, q_val)
+        padded to the table's nnz_cap."""
+        from .flat import (_coerce_bit_queries, _coerce_dense_queries,
+                           _sparse_list, sparse_query_arrays)
 
-        qs = _coerce_dense_queries(q, self.table.dim, self.device)
+        t = self.table
+        if self.kind == "bit":
+            return _coerce_bit_queries(q, t)
+        if self.kind == "sparse":
+            q = _sparse_list(q, t.dim)
+            if any(sv.nnz > t.nnz_cap for sv in q):
+                raise DataException(
+                    f"sparsevec cannot have more than {t.nnz_cap} non-zero "
+                    "elements for this table")
+            return sparse_query_arrays(q, t.nnz_cap, self.device)
+        qs = _coerce_dense_queries(q, t.dim, self.device)
         if self.metric is Metric.COSINE:
             norms = torch.sqrt(torch.sum(qs * qs, dim=1, keepdim=True))
             qs = qs / torch.clamp(norms, min=1e-30)
@@ -336,8 +408,8 @@ class HNSWIndex:
             values, keep = self._form_values(rows)
             rows = rows[keep]
             if not keep.all():
-                values = values[torch.as_tensor(np.flatnonzero(keep),
-                                                device=self.device)]
+                values = _take(values, torch.as_tensor(np.flatnonzero(keep),
+                                                       device=self.device))
         if len(rows) == 0:
             return
 
@@ -350,7 +422,7 @@ class HNSWIndex:
         new_keys: List[Optional[bytes]] = []
         if self.dedup:
             with timers.phase("hnsw.dedup_keys"):
-                keys = _dup_keys(_host_array(values))
+                keys = _dup_keys(_host_rows(values))
                 batch_map: Dict[bytes, int] = {}
                 for i, row in enumerate(rows.tolist()):
                     key = keys[i]
@@ -374,8 +446,8 @@ class HNSWIndex:
         if new_val_pos != list(range(len(rows))):
             # only when dedup dropped or merged rows: the identity gather
             # would copy the whole value block for nothing
-            values = values[torch.as_tensor(np.asarray(new_val_pos, np.int64),
-                                            device=self.device)]
+            values = _take(values, torch.as_tensor(
+                np.asarray(new_val_pos, np.int64), device=self.device))
 
         elems = np.asarray(self._alloc_slots(len(new_rows)), np.int64)
         # levels = floor(-ln(U)·ml), drawn exactly as the reference draws
@@ -430,20 +502,79 @@ class HNSWIndex:
     def _wave_bytes(self, b: int) -> int:
         """Transient device bytes of one insert wave of ``b`` elements: the
         beam pools, the pairwise select block and the per-level output
-        pools (builds run the visited set off, so no table)."""
+        pools (builds run the visited set off, so no table), by kind
+        (hnsw.py:624-660)."""
         ef = self.ef_construction
         c = ef + min(self.m, b)  # beam pool + intra-wave candidates
-        rep = 4 * self.table.dim
-        per_q = (4 * c * c                     # pairwise select block
-                 + (ef + c) * (rep + 9)        # pool vectors + dists + ids
+        pair = 4 * c * c  # pairwise select block
+        if self.kind == "dense":
+            rep = 4 * self.table.dim
+        elif self.kind == "bit":
+            rep = 4 * self.table.words
+        else:
+            rep = 8 * self.table.nnz_cap
+            if self._pair_sdim():
+                # the (c, sdim) f32 scatter block (×2 for its temps)
+                pair += c * self.table.dim * 4 * 2
+            else:  # merge-join (c, c, nnz lanes) idx + val gathers
+                pair = c * c * self._nnz_lanes() * 8
+        per_q = (pair
+                 + (ef + c) * (rep + 9)        # pool values + dists + ids
                  + (self._l_unroll + 1) * ef * 8)  # stacked per-level pools
         return b * per_q
 
+    def _nnz_lanes(self) -> int:
+        return ((self.table.nnz_cap + 127) // 128) * 128
+
+    def _pair_c(self) -> int:
+        """The reference's lane-padded candidate count of a select row."""
+        return ((self.ef_construction + min(self.m, self.wave_size) + 127)
+                // 128) * 128
+
+    def _pair_sdim(self) -> int:
+        """Logical dim at which sparse pairwise-select blocks are
+        densified, or 0 for the merge join: densify when the dense row is
+        smaller than the merge join's per-candidate gathers, dim·4 <
+        C·nnz_lanes·8 (hnsw.py:664-678).  L1 always merge-joins."""
+        if self.kind != "sparse" or self.metric is Metric.L1:
+            return 0
+        dim = int(self.table.dim)
+        return dim if dim * 4 < self._pair_c() * self._nnz_lanes() * 8 else 0
+
+    def _scorer_sdim(self) -> int:
+        """Logical dim of the densified-query scorer, or 0 for the merge
+        join: any dim up to 32,768 (its dense block is (Q, dim + 1));
+        L1 keeps the merge join (hnsw.py:680-694)."""
+        if self.kind != "sparse" or self.metric is Metric.L1:
+            return 0
+        dim = int(self.table.dim)
+        return dim if dim <= 32768 else 0
+
+    def _sparse_pair_rows_cap(self) -> int:
+        """The most rows of one sparse select or merge call: their
+        densified blocks or merge-join gathers stay under
+        ``hnsw.sparse_pair_bytes`` (hnsw.py:696-717); a power of two."""
+        c = self._pair_c()
+        if self._pair_sdim():
+            per_row = c * self.table.dim * 4 * 2 + 4 * c * c
+        else:
+            per_row = c * c * self._nnz_lanes() * 8
+        cap = max(1, int(config.get("hnsw.sparse_pair_bytes")) // per_row)
+        p = 1
+        while p * 2 <= cap:
+            p *= 2
+        return p
+
     def _effective_wave_size(self) -> int:
         """Shrink the wave until its working set fits maintenance_work_mem;
-        NOTICE once per index when degraded (hnswbuild.c:530-549)."""
+        NOTICE once per index when degraded (hnswbuild.c:530-549).  A
+        sparse wave is first capped by _sparse_pair_rows_cap, a structural
+        bound without a NOTICE (hnsw.py:720-740)."""
         budget = int(config.get("maintenance_work_mem"))
-        start = wave = self.wave_size
+        wave = self.wave_size
+        if self.kind == "sparse":
+            wave = min(wave, self._sparse_pair_rows_cap())
+        start = wave
         while wave > 8 and self._wave_bytes(wave) > budget:
             wave //= 2
         self._wave_eff = wave
@@ -503,8 +634,9 @@ class HNSWIndex:
         # growth pads the values past the table: the copy is private now
         self._refresh_alias()
         self._alias_values = False
-        self.values = torch.cat([self.values, self.values.new_zeros(
-            (pad, self.values.shape[1]))])
+        self._set_value_arrays([
+            torch.cat([a, a.new_full((pad, a.shape[1]), f)])
+            for a, f in zip(self._value_arrays(), self._value_fills())])
         self.nbr0 = torch.cat([self.nbr0, self.nbr0.new_full((pad, 2 * self.m), -1)])
         self.kept0 = torch.cat([self.kept0, self.kept0.new_zeros((pad, 2 * self.m))])
         self.up_slot = np.concatenate([self.up_slot, np.full(pad, -1, np.int32)])
@@ -514,7 +646,7 @@ class HNSWIndex:
         self.cap_e = new_cap
         self._dirty = True
 
-    def _write_values(self, elems, values: torch.Tensor) -> None:
+    def _write_values(self, elems, values) -> None:
         e_np = np.asarray(elems, np.int64)
         if self._alias_values:
             if np.array_equal(self.elem_rows[e_np, 0], e_np):
@@ -522,7 +654,10 @@ class HNSWIndex:
                 self._refresh_alias()
                 return
             self._materialize_values()
-        self.values[torch.as_tensor(e_np, device=self.device)] = values
+        e = torch.as_tensor(e_np, device=self.device)
+        blocks = values if self.kind == "sparse" else (values,)
+        for a, b in zip(self._value_arrays(), blocks):
+            a[e] = b
 
     # ------------------------------------------------------------ wave insert
     def _search_wave_raw(self, elems: np.ndarray, lv: np.ndarray,
@@ -538,13 +673,14 @@ class HNSWIndex:
         e_pad = np.concatenate([elems, np.full(nq_pad - nq, elems[0], elems.dtype)])
         lv_pad = np.concatenate([lv, np.zeros(nq_pad - nq, lv.dtype)])
         e_dev = torch.as_tensor(e_pad.astype(np.int32), device=self.device)
-        qs = K.elems_as_queries(self.values, e_dev)
+        qs = K.elems_as_queries(self.kind, self.values, e_dev)
         out_d, out_i = K.wave_search(
-            self.metric, self.values, self.nbr0, self.nbr_up,
+            self.kind, self.metric, self.values, self.nbr0, self.nbr_up,
             self._up_slot_dev, qs, lv_pad.astype(np.int32), self.entry,
             self.entry_level, ef=self.ef_construction,
             l_unroll=self._l_unroll, expand=self.beam_expand,
-            self_ids=e_dev if exclude_self else None)
+            self_ids=e_dev if exclude_self else None,
+            sdim=self._scorer_sdim())
         return out_d, out_i, nq, nq_pad
 
     def _search_wave(self, elems: np.ndarray, lv: np.ndarray,
@@ -579,9 +715,13 @@ class HNSWIndex:
                     b_lvl = nq_pad
                 else:
                     # upper levels hold ~1/m of the wave — compact to a small
-                    # block instead of a full-wave connect
+                    # block instead of a full-wave connect (the floor stays
+                    # within the sparse pairwise cap)
+                    floor = 64
+                    if self.kind == "sparse":
+                        floor = min(floor, self._sparse_pair_rows_cap())
                     idx_e = np.flatnonzero(elig)
-                    b_lvl = _round_pow2(max(len(idx_e), 64))
+                    b_lvl = _round_pow2(max(len(idx_e), floor))
                     pad_e = b_lvl - len(idx_e)
                     sel_idx = torch.as_tensor(np.concatenate(
                         [idx_e, np.zeros(pad_e, idx_e.dtype)]), device=dev)
@@ -597,11 +737,14 @@ class HNSWIndex:
                 # on it.  Larger than the reference's 2048: each chunk costs
                 # a fixed run of small launches in eager PyTorch.
                 chunk = min(16384, _round_pow2(b_lvl * lm))
+                if self.kind == "sparse":
+                    chunk = min(chunk, self._sparse_pair_rows_cap())
                 K.connect_level(
-                    self.metric, self.values, self.nbr0, self.nbr_up,
-                    self.kept0, self.kept_up, self._up_slot_dev, e_lvl,
-                    elig_dev, lc, pd, pi, m=self.m, mi=min(self.m, b_lvl),
-                    smax=lm, chunk=chunk)
+                    self.kind, self.metric, self.values, self.nbr0,
+                    self.nbr_up, self.kept0, self.kept_up, self._up_slot_dev,
+                    e_lvl, elig_dev, lc, pd, pi, m=self.m,
+                    mi=min(self.m, b_lvl), smax=lm, chunk=chunk,
+                    sdim=self._pair_sdim())
 
     def _insert_wave(self, elems: np.ndarray, lv: np.ndarray) -> None:
         """One wave: batched search + neighbor selection + connection
@@ -644,9 +787,9 @@ class HNSWIndex:
             # this level into the pools
             if len(elems) > 1:
                 intra_d, intra_i = K.intra_wave_candidates(
-                    self.metric, self.values, e_dev,
+                    self.kind, self.metric, self.values, e_dev,
                     torch.as_tensor(lv >= lc, device=dev),
-                    min(self.m, len(elems)))
+                    min(self.m, len(elems)), sdim=self._pair_sdim())
                 pd = torch.cat([pd, intra_d], dim=1)
                 pi = torch.cat([pi, intra_i], dim=1)
             block = _round_pow2(self._wave_eff)
@@ -673,8 +816,9 @@ class HNSWIndex:
 
     def _select_for(self, pool_d, pool_i, lm: int):
         """SelectNeighbors over each base element's candidate pool."""
-        return K.select_connections(self.metric, self.values, pool_d, pool_i,
-                                    lm)
+        return K.select_connections(self.kind, self.metric, self.values,
+                                    pool_d, pool_i, lm,
+                                    sdim=self._pair_sdim())
 
     def _write_own_lists(self, elems: np.ndarray, level: int,
                          sel: torch.Tensor, kept: torch.Tensor) -> None:
@@ -738,8 +882,9 @@ class HNSWIndex:
             old = self._neighbors_of_level(t_dev, level)  # (T, lm)
             old_kept = self._kept_of_level(t_dev, level)
             new_lists, new_kept = merge(
-                self.metric, self.values, old, old_kept,
-                torch.as_tensor(new_src, device=dev), t_dev, lm)
+                self.kind, self.metric, self.values, old, old_kept,
+                torch.as_tensor(new_src, device=dev), t_dev, lm,
+                sdim=self._pair_sdim())
             n = len(t_chunk)
             if level == 0:
                 real = torch.as_tensor(t_chunk.astype(np.int64), device=dev)
@@ -769,7 +914,7 @@ class HNSWIndex:
                  if ef_search is not None else config.get("hnsw.ef_search"))
         mode = config.get("hnsw.iterative_scan")
         qs = self._query_rep(q)
-        nq = qs.shape[0]
+        nq = K._nq(qs)
         if self.entry < 0:
             return (np.full((nq, k), np.inf, np.float32),
                     np.full((nq, k), -1, np.int64))
@@ -787,9 +932,15 @@ class HNSWIndex:
 
     def _scan_bytes_per_query(self, ef: int) -> int:
         """Device bytes of one query's scan state at ``ef``: pool slots ×
-        (vector copy + distance + id + expanded flag) plus the visited
+        (value copy + distance + id + expanded flag) plus the visited
         table."""
-        return ef * (4 * self.table.dim + 9) + 4 * K.visited_capacity(ef)
+        if self.kind == "sparse":
+            vec_bytes = 4 * 2 * self.table.nnz_cap
+        elif self.kind == "bit":
+            vec_bytes = 4 * self.table.words
+        else:
+            vec_bytes = 4 * self.table.dim
+        return ef * (vec_bytes + 9) + 4 * K.visited_capacity(ef)
 
     def _packed_plan(self):
         """Layer-0 value packing dtype (or None for row gathers), from
@@ -804,7 +955,8 @@ class HNSWIndex:
             raise InvalidParameterValue(
                 f'PGVECTOR_TPU_PACKED_SCAN "{mode}" is not ported yet '
                 f"(one of {', '.join(PACKED_MODES)})")
-        if mode == "off":
+        if mode == "off" or self.kind != "dense":
+            # only dense rows are value-packed (hnsw.py:1225-1229)
             return None
         if mode == "f32":
             return torch.float32
@@ -844,11 +996,12 @@ class HNSWIndex:
         pdt = self._packed_plan()
         packed_vals = self._ensure_nbr_vals(pdt) if pdt is not None else None
         d, r, steps = K.query_search(
-            self.metric, self.values, self.nbr0, self.nbr_up,
+            self.kind, self.metric, self.values, self.nbr0, self.nbr_up,
             self._up_slot_dev, self._elem_rows_dev, self.table.valid, fmask,
             qs, self.entry, self.entry_level, ef=ef, k=k, heaptids=HEAPTIDS,
             expand=self.beam_expand, packed_vals=packed_vals,
-            rerank=(pdt is not None and pdt != torch.float32))
+            rerank=(pdt is not None and pdt != torch.float32),
+            sdim=self._scorer_sdim())
         #: layer-0 hop count of the last scan
         self._last_scan_steps = steps
         return stored_to_user(self.metric, d), r
@@ -862,16 +1015,17 @@ class HNSWIndex:
         Stops at hnsw.max_scan_tuples, the work_mem × scan_mem_multiplier
         memory cap (hnswscan.c:149-156, 255-266) or 64 batches."""
         self._sync_device_meta()
-        nq = qs.shape[0]
+        nq = K._nq(qs)
         max_tuples = int(config.get("hnsw.max_scan_tuples"))
         mem_budget = (config.get("work_mem")
                       * config.get("hnsw.scan_mem_multiplier"))
         dk = max(4 * ef, 64)
-        graph = (self.metric, self.values, self.nbr0, self.nbr_up,
+        graph = (self.kind, self.metric, self.values, self.nbr0, self.nbr_up,
                  self._up_slot_dev)
+        sdim = self._scorer_sdim()
         pool_d, pool_i, visited, disc_d, disc_i, sc_dev = K.query_search_first(
             *graph, qs, self.entry, self.entry_level, ef=ef, dk=dk,
-            expand=self.beam_expand)
+            expand=self.beam_expand, sdim=sdim)
         heap = (self._elem_rows_dev, self.table.valid, fmask)
         acc_d: List[np.ndarray] = []
         acc_r: List[np.ndarray] = []
@@ -921,7 +1075,8 @@ class HNSWIndex:
                 break
             pool_d, pool_i, visited, disc_d, disc_i, sc_dev = \
                 K.query_search_resume(*graph, qs, visited, disc_d, disc_i,
-                                      ef=ef, expand=self.beam_expand)
+                                      ef=ef, expand=self.beam_expand,
+                                      sdim=sdim)
         #: iterative resume rounds of the last scan — stats.searches input
         self._last_scan_rounds = batches
         #: candidates each query of the last iterative scan scored
@@ -1030,10 +1185,12 @@ class HNSWIndex:
             # copy: an aliased tensor is the heap itself
             if self._alias_values:
                 self._refresh_alias()
-                self.values = self.values.clone()
+                self._set_value_arrays([a.clone()
+                                        for a in self._value_arrays()])
                 self._alias_values = False
             dele = torch.as_tensor(deleting.astype(np.int64), device=dev)
-            self.values[dele] = 0
+            for a, f in zip(self._value_arrays(), self._value_fills()):
+                a[dele] = f
             self.nbr0[dele] = -1
             self.kept0[dele] = False
             up = self.up_slot[deleting]
@@ -1091,6 +1248,25 @@ def _count_found(acc_r: List[np.ndarray], nq: int) -> np.ndarray:
     new = np.concatenate(
         [s[:, :1] >= 0, (s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)], axis=1)
     return new.sum(axis=1, dtype=np.int64)
+
+
+def _take(values, idx: torch.Tensor):
+    """Rows ``idx`` of a value block (a tensor or a sparse (idx, val)
+    pair)."""
+    if isinstance(values, tuple):
+        return tuple(a[idx] for a in values)
+    return values[idx]
+
+
+def _host_rows(values) -> np.ndarray:
+    """The bytes of each row of a value block (a tensor or a sparse (idx,
+    val) pair, whose row keys are its index bytes then its value bytes),
+    as one host (n, bytes) uint8 array."""
+    arrays = values if isinstance(values, tuple) else (values,)
+    parts = [np.ascontiguousarray(_host_array(a)) for a in arrays]
+    n = parts[0].shape[0]
+    return np.concatenate([p.reshape(n, -1).view(np.uint8) for p in parts],
+                          axis=1)
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:

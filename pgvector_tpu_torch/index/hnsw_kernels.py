@@ -1,5 +1,9 @@
 """HNSW device code — counterpart of ``pgvector_tpu.index.hnsw_kernels``
-(the dense, single-device subset).
+(the single-device subset) for the three kinds of index values: ``dense``
+(a (cap, D) tensor), ``bit`` (packed (cap, W) int32 words) and ``sparse``
+(an (idx, val) pair of padded (cap, P) rows).  The functions take the
+reference's ``(kind, metric, values, ..., sdim)``; ``sdim > 0`` selects
+the densified sparse scorer and pairwise block.
 
 The reference walks the graph one candidate at a time (HnswSearchLayer,
 Algorithm 2, hnswutils.c:822-985).  Here, as in the JAX package, one call
@@ -25,7 +29,9 @@ default): the pool membership check keeps the ef pool duplicate-free.
 Iterative scans keep a ``hash2`` visited table and a discarded pool
 across resumes (:func:`query_search_first`, :func:`query_search_resume`)
 and, as in the reference, take the row-gather hop.  The packed query hop
-is one kernel, K2 (:func:`..ops.packed_hop.packed_hop`).
+of a dense index is one kernel, K2 (:func:`..ops.packed_hop.packed_hop`);
+every bit distance — hop, wave search and pairwise select block — is K5
+(:func:`..ops.bit_scan.bit_point_scores`).
 """
 
 from __future__ import annotations
@@ -34,7 +40,10 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops.distance import dense_point_scores
+from ..ops.bit_scan import bit_point_scores
+from ..ops.distance import (dense_point_scores, dot_precision,
+                            highest_precision, scatter_dense,
+                            sparse_scores_batch)
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
 
@@ -57,20 +66,85 @@ def _long(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def make_scorer(metric: Metric, vecs: torch.Tensor):
-    """score(qs, rows) -> (Q, R) f32 distances from the query batch to the
-    stored values of element ids ``rows`` (negative ids give +inf) — the
-    dense branch of the reference's make_scorer."""
+_SPARSE_DENSE_METRICS = (Metric.L2, Metric.IP, Metric.COSINE)
+
+
+def make_scorer(kind: str, metric: Metric, values, sdim: int = 0):
+    """score(qs, rows) -> (Q, R) f32 distances from the query batch ``qs``
+    (the query rep: (Q, D) values, (Q, W) words, or a (q_idx, q_val) pair)
+    to the stored values of element ids ``rows`` (negative ids give +inf).
+
+    ``bit`` runs K5.  ``sparse`` with ``sdim > 0`` (L2/IP/cosine) is the
+    *densified-query* scorer: the query batch is scattered once into dense
+    (Q, sdim + 1) lanes and each candidate's query-side values come from a
+    gather at its indices; otherwise the merge join."""
+    if kind == "dense":
+        def score(qs, rows):
+            return dense_point_scores(metric, qs, values[_long(rows)], rows)
+
+        return score
+    if kind == "bit":
+        def score(qs, rows):
+            return bit_point_scores(metric, qs, values, rows)
+
+        return score
+    if kind != "sparse":
+        raise ValueError(kind)
+    idx_arr, val_arr = values
+    if sdim > 0 and metric in _SPARSE_DENSE_METRICS:
+        memo = [None, None]  # the densified query batch of the last call
+
+        def score(qs, rows):
+            q_idx, q_val = qs
+            if memo[0] is not q_idx:
+                memo[0], memo[1] = q_idx, scatter_dense(q_idx, q_val, sdim)
+            qd = memo[1]
+            safe = _long(rows)
+            ridx, rval = idx_arr[safe], val_arr[safe]  # (Q, R, P)
+            ci = torch.clamp(ridx, max=sdim).long().reshape(qd.shape[0], -1)
+            qv_at = torch.gather(qd, 1, ci).reshape(ridx.shape)
+            ip = torch.sum(qv_at * rval, dim=-1)
+            if metric is Metric.IP:
+                d = -ip
+            else:
+                q_sq = torch.sum(q_val * q_val, dim=-1)[:, None]
+                r_sq = torch.sum(rval * rval, dim=-1)
+                if metric is Metric.L2:
+                    d = torch.clamp(q_sq + r_sq - 2.0 * ip, min=0.0)
+                else:
+                    denom = torch.sqrt(q_sq * r_sq)
+                    cos = torch.where(
+                        denom > 0, ip / torch.where(denom > 0, denom, 1.0),
+                        -torch.inf)
+                    d = 1.0 - cos
+            return torch.where(rows >= 0, d, torch.inf)
+
+        return score
 
     def score(qs, rows):
-        return dense_point_scores(metric, qs, vecs[_long(rows)], rows)
+        q_idx, q_val = qs
+        safe = _long(rows)
+        d = sparse_scores_batch(metric, q_idx, q_val, idx_arr[safe],
+                                val_arr[safe])
+        return torch.where(rows >= 0, d, torch.inf)
 
     return score
 
 
-def elems_as_queries(vecs: torch.Tensor, elems: torch.Tensor) -> torch.Tensor:
+def elems_as_queries(kind: str, values, elems: torch.Tensor):
     """Stored elements as the query side (build-time searches)."""
-    return vecs[_long(elems)]
+    safe = _long(elems)
+    if kind == "sparse":
+        return (values[0][safe], values[1][safe])
+    return values[safe]
+
+
+def _nq(qs) -> int:
+    return qs[0].shape[0] if isinstance(qs, tuple) else qs.shape[0]
+
+
+def _dev(qs) -> torch.device:
+    return qs[0].device if isinstance(qs, tuple) else qs.device
 
 
 # ---------------------------------------------------------------------------
@@ -421,25 +495,65 @@ def select_neighbors(base_d, pair_d, valid, lm: int, forced=None):
     return pos, kept_sel
 
 
-def _pairwise_dists(metric: Metric, vecs: torch.Tensor,
-                    elems: torch.Tensor) -> torch.Tensor:
+def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
+                    sdim: int = 0) -> torch.Tensor:
     """(T, C, C) stored distances among each row's candidate elements.
-    Dense L2/IP/cos ride one batched f32 product (the reference left it
-    to XLA at HIGHEST precision); L1 is a broadcast block."""
-    ok = (elems[:, :, None] >= 0) & (elems[:, None, :] >= 0)
-    v = vecs[_long(elems)].float()  # (T, C, D)
-    if metric in (Metric.L2, Metric.IP, Metric.COSINE):
-        from ..ops.distance import dot_precision
 
-        dot_precision()
-        ip = torch.bmm(v, v.transpose(1, 2))
-        if metric is Metric.L2:
-            sq = torch.sum(v * v, dim=-1)
-            d = torch.clamp(sq[:, :, None] - 2.0 * ip + sq[:, None, :], min=0.0)
+    Dense L2/IP/cos ride one batched f32 product (the reference left it
+    to XLA at HIGHEST precision); dense L1 is a broadcast block.  Bit runs
+    K5 with the candidates' own words as the queries, (T·C, W) against
+    rows (T·C, C), so no (T, C, C, W) block is built.  Sparse with
+    ``sdim > 0`` (L2/IP/cos) scatters each candidate dense into (sdim,)
+    lanes and takes one batched product plus norm corrections; otherwise
+    (L1, huge dims) the merge join of every candidate against its row."""
+    ok = (elems[:, :, None] >= 0) & (elems[:, None, :] >= 0)
+    safe = _long(elems)
+    t, c = elems.shape
+    if kind == "dense":
+        v = values[safe].float()  # (T, C, D)
+        if metric in (Metric.L2, Metric.IP, Metric.COSINE):
+            dot_precision()
+            ip = torch.bmm(v, v.transpose(1, 2))
+            if metric is Metric.L2:
+                sq = torch.sum(v * v, dim=-1)
+                d = torch.clamp(sq[:, :, None] - 2.0 * ip + sq[:, None, :],
+                                min=0.0)
+            else:
+                d = -ip
         else:
-            d = -ip
+            d = torch.sum(torch.abs(v[:, :, None, :] - v[:, None, :, :]),
+                          dim=-1)
+    elif kind == "bit":
+        rows = elems[:, None, :].expand(t, c, c).reshape(t * c, c)
+        d = bit_point_scores(metric, values[safe.reshape(-1)], values,
+                             rows).reshape(t, c, c)
     else:
-        d = torch.sum(torch.abs(v[:, :, None, :] - v[:, None, :, :]), dim=-1)
+        ridx, rval = values[0][safe], values[1][safe]  # (T, C, P)
+        p = ridx.shape[2]
+        if sdim > 0 and metric in _SPARSE_DENSE_METRICS:
+            v = scatter_dense(ridx.reshape(t * c, p), rval.reshape(t * c, p),
+                              sdim)[:, :sdim].reshape(t, c, sdim)
+            with highest_precision():
+                ip = torch.bmm(v, v.transpose(1, 2))
+            if metric is Metric.IP:
+                d = -ip
+            else:
+                sq = torch.sum(rval * rval, dim=-1)  # pads add 0
+                if metric is Metric.L2:
+                    d = torch.clamp(sq[:, :, None] - 2.0 * ip
+                                    + sq[:, None, :], min=0.0)
+                else:
+                    denom = torch.sqrt(sq[:, :, None] * sq[:, None, :])
+                    cos = torch.where(
+                        denom > 0, ip / torch.where(denom > 0, denom, 1.0),
+                        -torch.inf)
+                    d = 1.0 - cos
+        else:
+            rows_i = ridx[:, None].expand(t, c, c, p).reshape(t * c, c, p)
+            rows_v = rval[:, None].expand(t, c, c, p).reshape(t * c, c, p)
+            d = sparse_scores_batch(metric, ridx.reshape(t * c, p),
+                                    rval.reshape(t * c, p), rows_i,
+                                    rows_v).reshape(t, c, c)
     return torch.where(ok, d, torch.inf)
 
 
@@ -450,20 +564,21 @@ def _select_from(cand, cand_d, pair, lm: int, forced=None):
     return sel, kept & (pos >= 0), pos
 
 
-def select_connections(metric, vecs, pool_d, pool_i, lm: int):
+def select_connections(kind, metric, values, pool_d, pool_i, lm: int,
+                       sdim: int = 0):
     """SelectNeighbors over each base element's candidate pool →
     ((Q, lm) neighbor element ids, (Q, lm) heuristic-kept flags)."""
-    pair = _pairwise_dists(metric, vecs, pool_i)
+    pair = _pairwise_dists(kind, metric, values, pool_i, sdim)
     sel, kept, _ = _select_from(pool_i, pool_d, pair, lm)
     return sel, kept
 
 
-def merge_backlinks_wholesale(metric, vecs, old_lists, old_kept, new_src,
-                              targets, lm: int):
+def merge_backlinks_wholesale(kind, metric, values, old_lists, old_kept,
+                              new_src, targets, lm: int, sdim: int = 0):
     """One SelectNeighbors over old ∪ new per target.  ``old_kept`` marks
     the incumbents whose heuristic-kept status is sticky.  Returns (new
     lists, new kept flags)."""
-    score = make_scorer(metric, vecs)
+    score = make_scorer(kind, metric, values, sdim)
     cand = torch.cat([old_lists, new_src], dim=1)
     forced = torch.cat([old_kept & (old_lists >= 0),
                         torch.zeros_like(new_src, dtype=torch.bool)], dim=1)
@@ -474,15 +589,15 @@ def merge_backlinks_wholesale(metric, vecs, old_lists, old_kept, new_src,
     dup = torch.any(eq & earlier[None] & (cand[:, :, None] >= 0), dim=2)
     cand = torch.where(dup, -1, cand)
     forced = forced & (cand >= 0)
-    base_d = score(elems_as_queries(vecs, targets), cand)
+    base_d = score(elems_as_queries(kind, values, targets), cand)
     base_d = torch.where(targets[:, None] >= 0, base_d, torch.inf)
-    pair = _pairwise_dists(metric, vecs, cand)
+    pair = _pairwise_dists(kind, metric, values, cand, sdim)
     sel, kept, _ = _select_from(cand, base_d, pair, lm, forced)
     return sel, kept
 
 
-def merge_backlinks(metric, vecs, old_lists, old_kept, new_src, targets,
-                    lm: int):
+def merge_backlinks(kind, metric, values, old_lists, old_kept, new_src,
+                    targets, lm: int, sdim: int = 0):
     """HnswUpdateConnection batched by target (hnswutils.c:1181-1229), with
     the reference's *incremental* semantics: each new source is folded one
     at a time — appended while the list has room, else one select over the
@@ -490,8 +605,8 @@ def merge_backlinks(metric, vecs, old_lists, old_kept, new_src, targets,
     set (the cached ``closer`` reuse, hnswutils.c:1094-1131), so exactly
     one unprotected slot turns over per source.  Returns ((T, lm) lists,
     (T, lm) kept flags)."""
-    score = make_scorer(metric, vecs)
-    t_rep = elems_as_queries(vecs, targets)
+    score = make_scorer(kind, metric, values, sdim)
+    t_rep = elems_as_queries(kind, values, targets)
     t = old_lists.shape[0]
     rows = torch.arange(t, device=old_lists.device)
     cur = old_lists
@@ -512,7 +627,7 @@ def merge_backlinks(metric, vecs, old_lists, old_kept, new_src, targets,
         forced = torch.cat([curk, curk.new_zeros((t, 1))], dim=1)
         base_d = score(t_rep, cand)
         base_d = torch.where(targets[:, None] >= 0, base_d, torch.inf)
-        pair = _pairwise_dists(metric, vecs, cand)
+        pair = _pairwise_dists(kind, metric, values, cand, sdim)
         pruned, pruned_k, _ = _select_from(cand, base_d, pair, lm, forced)
         keep = skip[:, None]
         cur = torch.where(keep, cur, torch.where(has_free[:, None], appended,
@@ -553,12 +668,13 @@ def _group_edges(tgt, src, d, smax: int):
     return targets, new_src, u_count
 
 
-def intra_wave_candidates(metric, vecs, elems, eligible, mi: int):
+def intra_wave_candidates(kind, metric, values, elems, eligible, mi: int,
+                          sdim: int = 0):
     """Top-mi nearest eligible *wave-mates* per wave member, from one (B, B)
     distance block.  Members of a wave search the frozen graph and never
     see each other; folding the nearest wave-mates into each member's pool
     restores those edges.  Returns (dists (B, mi), elem ids (B, mi))."""
-    d = _pairwise_dists(metric, vecs, elems[None, :])[0]  # (B, B)
+    d = _pairwise_dists(kind, metric, values, elems[None, :], sdim)[0]
     b = d.shape[0]
     eye = torch.eye(b, dtype=torch.bool, device=d.device)
     d = torch.where(eye | ~eligible[None, :], torch.inf, d)
@@ -568,9 +684,10 @@ def intra_wave_candidates(metric, vecs, elems, eligible, mi: int):
     return torch.where(ids >= 0, d_s, torch.inf), ids
 
 
-def connect_level(metric, vecs, nbr0, nbr_up, kept0, kept_up, up_slot,
-                  elems, eligible, level: int, pool_d, pool_i, m: int,
-                  mi: int, smax: int, chunk: int) -> None:
+def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
+                  up_slot, elems, eligible, level: int, pool_d, pool_i,
+                  m: int, mi: int, smax: int, chunk: int,
+                  sdim: int = 0) -> None:
     """One connect pass for one level of an insert wave: intra-wave
     candidates, SelectNeighbors per wave member, own-list writes, then
     backlink merges grouped by target.  The graph tensors ``nbr0``,
@@ -582,14 +699,14 @@ def connect_level(metric, vecs, nbr0, nbr_up, kept0, kept_up, up_slot,
     pool_d = torch.where(eligible[:, None], pool_d, torch.inf)
     pool_i = torch.where(eligible[:, None], pool_i, -1)
     if mi > 0:
-        intra_d, intra_i = intra_wave_candidates(metric, vecs, elems, eligible,
-                                                 mi)
+        intra_d, intra_i = intra_wave_candidates(kind, metric, values, elems,
+                                                 eligible, mi, sdim)
         intra_i = torch.where(eligible[:, None], intra_i, -1)
         intra_d = torch.where(intra_i >= 0, intra_d, torch.inf)
         pool_d = torch.cat([pool_d, intra_d], dim=1)
         pool_i = torch.cat([pool_i, intra_i], dim=1)
     # 2. SelectNeighbors over each member's pool (Algorithm 4)
-    pair = _pairwise_dists(metric, vecs, pool_i)
+    pair = _pairwise_dists(kind, metric, values, pool_i, sdim)
     sel, keptf, pos = _select_from(pool_i, pool_d, pair, lm)
     sel_d = torch.where(pos >= 0, torch.gather(pool_d, 1, _long(pos)),
                         torch.inf)
@@ -625,7 +742,8 @@ def connect_level(metric, vecs, nbr0, nbr_up, kept0, kept_up, up_slot,
                               nbr_up[_long(slots_c), lvl_idx], -1)
             oldk = kept_up[_long(slots_c), lvl_idx] & okc[:, None]
         new_l, new_k = merge_backlinks_wholesale(
-            metric, vecs, old, oldk, s_c, torch.where(okc, t_c, -1), lm)
+            kind, metric, values, old, oldk, s_c, torch.where(okc, t_c, -1),
+            lm, sdim)
         new_l = torch.where(okc[:, None], new_l, -1)
         new_k = new_k & okc[:, None]
         if level0:
@@ -652,7 +770,7 @@ def _wave_level_loop(score, qs, lv, entry: int, entry_level: int, ef: int,
     runs it masked).  With ``self_ids`` (elements already in the graph,
     re-searched by vacuum's repair) each level's output pool drops the
     query's own element (the existing=true search, hnswutils.c:1278)."""
-    dev = qs.device
+    dev = _dev(qs)
     nq = len(lv)
     lv_t = torch.as_tensor(lv, dtype=torch.int32, device=dev)
     lv_max = int(lv.max()) if nq else -1
@@ -691,13 +809,13 @@ def _wave_level_loop(score, qs, lv, entry: int, entry_level: int, ef: int,
     return torch.stack(out_d), torch.stack(out_i)
 
 
-def wave_search(metric, vecs, nbr0, nbr_up, up_slot, qs, lv, entry: int,
-                entry_level: int, ef: int, l_unroll: int, expand: int = 1,
-                self_ids=None):
+def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
+                entry: int, entry_level: int, ef: int, l_unroll: int,
+                expand: int = 1, self_ids=None, sdim: int = 0):
     """Algorithm 1's search for a wave of elements.  Returns stacked
     per-level pools (l_unroll+1, Q, ef); ``self_ids`` excludes each
     query's own element from them (vacuum's repair)."""
-    score = make_scorer(metric, vecs)
+    score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
 
     def greedy_fn(lc, qs_, cur, cur_d):
@@ -741,10 +859,10 @@ def _expand_topk(pool_d, pool_i, elem_rows, row_valid, fmask, k: int,
     return d, torch.where(torch.isinf(d), -1, r)
 
 
-def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
-                 fmask, qs, entry: int, entry_level: int, ef: int, k: int,
-                 heaptids: int, expand: int = 1, packed_vals=None,
-                 rerank: bool = False
+def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
+                 row_valid, fmask, qs, entry: int, entry_level: int, ef: int,
+                 k: int, heaptids: int, expand: int = 1, packed_vals=None,
+                 rerank: bool = False, sdim: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Algorithm 5 (hnswscan.c:25-56): greedy descent through the upper
     levels, the ef beam at layer 0, then heap-TID expansion.
@@ -754,11 +872,12 @@ def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
     slabs, and each hop after the selection runs in K2.  With ``rerank``
     the final pool is re-scored against the exact f32 values, so a bf16
     cache changes only pool admission, never the emitted order.  Returns
-    (stored distances, row ids, layer-0 hops)."""
-    score = make_scorer(metric, vecs)
+    (stored distances, row ids, layer-0 hops).  Only a dense index has
+    packed values (the reference packs dense rows only, hnsw.py:1203)."""
+    score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
-    nq = qs.shape[0]
-    cur = torch.full((nq,), entry, dtype=torch.int32, device=qs.device)
+    nq = _nq(qs)
+    cur = torch.full((nq,), entry, dtype=torch.int32, device=_dev(qs))
     cur_d = score(qs, cur[:, None])[:, 0]
     for lc in range(entry_level, 0, -1):
         cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
@@ -786,23 +905,24 @@ def query_search(metric, vecs, nbr0, nbr_up, up_slot, elem_rows, row_valid,
 # ---------------------------------------------------------------------------
 
 
-def query_search_first(metric, vecs, nbr0, nbr_up, up_slot, qs, entry: int,
-                       entry_level: int, ef: int, dk: int, expand: int = 1):
+def query_search_first(kind, metric, values, nbr0, nbr_up, up_slot, qs,
+                       entry: int, entry_level: int, ef: int, dk: int,
+                       expand: int = 1, sdim: int = 0):
     """First batch of an iterative scan: Algorithm 5 with a live discarded
     pool of ``dk`` slots.  Returns (pool_d, pool_i, visited, disc_d,
     disc_i, scanned) — the state a resume continues from, and each query's
     scored candidates."""
-    score = make_scorer(metric, vecs)
+    score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
-    nq = qs.shape[0]
-    cur = torch.full((nq,), entry, dtype=torch.int32, device=qs.device)
+    nq, dev = _nq(qs), _dev(qs)
+    cur = torch.full((nq,), entry, dtype=torch.int32, device=dev)
     cur_d = score(qs, cur[:, None])[:, 0]
     for lc in range(entry_level, 0, -1):
         cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
                                     max_steps=512)
-    visited = visited_init(nq, ef, device=qs.device)
-    disc = (torch.full((nq, dk), torch.inf, device=qs.device),
-            torch.full((nq, dk), -1, dtype=torch.int32, device=qs.device))
+    visited = visited_init(nq, ef, device=dev)
+    disc = (torch.full((nq, dk), torch.inf, device=dev),
+            torch.full((nq, dk), -1, dtype=torch.int32, device=dev))
     pool_d, pool_i, visited, (disc_d, disc_i), _, scanned = search_layer(
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None], ef=ef,
         max_steps=8 * ef + 64, expand=expand, visited=visited, disc=disc,
@@ -810,12 +930,13 @@ def query_search_first(metric, vecs, nbr0, nbr_up, up_slot, qs, entry: int,
     return pool_d, pool_i, visited, disc_d, disc_i, scanned
 
 
-def query_search_resume(metric, vecs, nbr0, nbr_up, up_slot, qs, visited,
-                        disc_d, disc_i, ef: int, expand: int = 1):
+def query_search_resume(kind, metric, values, nbr0, nbr_up, up_slot, qs,
+                        visited, disc_d, disc_i, ef: int, expand: int = 1,
+                        sdim: int = 0):
     """ResumeScanItems (hnswscan.c:61-87): re-seed a layer-0 search from the
     best ef discarded candidates without resetting the visited set
     (initVisited=false), keeping the rest of the discarded pool live."""
-    score = make_scorer(metric, vecs)
+    score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
     nq, dk = disc_d.shape
     keep = min(ef, dk)

@@ -1,6 +1,8 @@
-"""IVFFlat index over a dense table — counterpart of
-``pgvector_tpu.index.ivfflat`` (``DenseTable`` of f32, bf16 or f16 values;
-the L2, inner-product and cosine opclasses).
+"""IVFFlat index — counterpart of ``pgvector_tpu.index.ivfflat``: a
+``DenseTable`` of f32, bf16 or f16 values under the L2, inner-product and
+cosine opclasses, or a ``BitTable`` under ``bit_hamming_ops`` (k-means on
+the unpacked 0/1 bits with binary centers; Hamming order equals L2 order
+on unpacked bits against binary centers).
 
 Layout, as in the reference: centroids are an f32 ``(lists, D)`` tensor;
 posting lists are laid out in *compact blocks*: each list occupies
@@ -25,9 +27,10 @@ reached.  Two formulations of one probe batch, picked by coverage:
   mask in posting-slot space; row ids appear only at the end.
 - *blocks*: each query gathers the blocks of its own probed lists.
 
+A bit index keeps packed words in posting order and always takes the
+block route, its popcounts in K5 (:func:`..ops.bit_scan.bit_point_scores`).
 Selections keep the reference's tie rule (``lax.top_k``: the lower
 position first) through the stable sort of :func:`..ops.topk.topk_smallest`.
-Bit tables and the hamming opclass are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,9 +44,10 @@ import torch
 from ..config import config
 from ..errors import DataException, FeatureNotSupported
 from ..ops import distance as D
+from ..ops.bit_scan import bit_point_scores
 from ..ops.metric import Metric, stored_to_user
 from ..ops.topk import merge_topk, topk_smallest
-from ..store.table import DenseTable
+from ..store.table import BitTable, DenseTable
 from ..utils.stats import ScanStats
 from ..utils.telemetry import Progress, timers
 from .flat import _coerce_dense_queries
@@ -56,8 +60,10 @@ MIN_LISTS, MAX_LISTS = 1, 32768
 #: per-type dimension caps (IvfflatTypeInfo, src/ivfutils.c:282-423)
 MAX_DIM_F32 = 2000
 MAX_DIM_F16 = 4000
+MAX_DIM_BIT = 64000
 
 DENSE_OPCLASSES = (Metric.L2, Metric.IP, Metric.COSINE)
+BIT_OPCLASSES = (Metric.HAMMING,)
 
 #: finite "masked" score of the inverted scan, turned into +inf / −1 after
 #: the selection (the reference's sentinel; any real score is far below)
@@ -71,7 +77,8 @@ def _sync(device: torch.device) -> None:
 
 
 class IVFFlatIndex:
-    """An IVFFlat access method over a DenseTable, on the table's device."""
+    """An IVFFlat access method over a DenseTable or BitTable, on the
+    table's device."""
 
     #: rows per contiguous value block — the probe scan's gather unit
     POST_BLOCK = 512
@@ -90,16 +97,28 @@ class IVFFlatIndex:
         if not MIN_LISTS <= lists <= MAX_LISTS:
             raise DataException(
                 f'value {lists} out of bounds for option "lists"')
-        if not isinstance(table, DenseTable):
-            raise FeatureNotSupported(
-                f"ivfflat over {type(table).__name__} is not ported yet")
-        if metric not in DENSE_OPCLASSES:
-            raise FeatureNotSupported(
-                f"operator {metric.op} is not supported by ivfflat")
-        cap = MAX_DIM_F16 if table.dtype != torch.float32 else MAX_DIM_F32
-        if table.dim > cap:
-            raise DataException(
-                f"column cannot have more than {cap} dimensions for ivfflat index")
+        self._is_bit = isinstance(table, BitTable)
+        if self._is_bit:
+            if metric not in BIT_OPCLASSES:
+                raise FeatureNotSupported(
+                    f"operator class bit_{metric.name.lower()}_ops does not "
+                    "exist for ivfflat")
+            if table.dim > MAX_DIM_BIT:
+                raise DataException(
+                    f"column cannot have more than {MAX_DIM_BIT} dimensions "
+                    "for ivfflat index")
+        else:
+            if metric not in DENSE_OPCLASSES:
+                raise FeatureNotSupported(
+                    f"operator {metric.op} is not supported by ivfflat")
+            if not isinstance(table, DenseTable):
+                raise FeatureNotSupported(
+                    f"ivfflat does not support {type(table).__name__}")
+            cap = MAX_DIM_F16 if table.dtype != torch.float32 else MAX_DIM_F32
+            if table.dim > cap:
+                raise DataException(
+                    f"column cannot have more than {cap} dimensions for "
+                    "ivfflat index")
         self.table = table
         self.device = table.device
         self.metric = metric
@@ -109,7 +128,8 @@ class IVFFlatIndex:
         #: pg_stat_user_indexes / nsearches analogue (utils/stats.py)
         self.stats = ScanStats()
         self.progress = progress or Progress()
-        self.centroids: Optional[torch.Tensor] = None  # (lists, D) f32
+        #: (lists, D) f32 centers (0/1 floats for bit)
+        self.centroids: Optional[torch.Tensor] = None
         self.postings: Optional[np.ndarray] = None  # host (lists, cap)
         self.postings_flat: Optional[torch.Tensor] = None  # compact slots
         self.post_values: Optional[torch.Tensor] = None
@@ -135,10 +155,13 @@ class IVFFlatIndex:
         return self.metric in (Metric.IP, Metric.COSINE)
 
     def _index_values(self, rows: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
-        """Formed f32 values of table rows (normalized for cosine) and the
-        keep mask: zero-norm rows are not indexed for cosine
-        (ivfbuild.c:174-179)."""
+        """Formed f32 values of table rows (normalized for cosine, unpacked
+        0/1 bits for bit) and the keep mask: zero-norm rows are not indexed
+        for cosine (ivfbuild.c:174-179)."""
         r = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        if self._is_bit:
+            return (D.unpack_bits(self.table.data[r], self.table.dim),
+                    np.ones(len(rows), bool))
         vals = self.table.data[r].float()
         if self._normalized:
             norms = torch.sqrt(torch.sum(vals * vals, dim=1))
@@ -181,7 +204,9 @@ class IVFFlatIndex:
             if samples is None:
                 # RandomCenters on an empty table (ivfkmeans.c:110-133)
                 c = rng.random((self.lists, t.dim)).astype(np.float32)
-                if self._normalized:
+                if self._is_bit:
+                    c = (c > 0.5).astype(np.float32)
+                elif self._normalized:
                     c = c / np.maximum(
                         np.linalg.norm(c, axis=1, keepdims=True), 1e-30)
                 centers = torch.as_tensor(c, device=self.device)
@@ -189,7 +214,8 @@ class IVFFlatIndex:
             else:
                 centers, self.kmeans_iters = train_centers(
                     samples, self.lists, spherical=self._spherical,
-                    normalize_data=self._normalized, seed=self.seed)
+                    binary=self._is_bit, normalize_data=self._normalized,
+                    seed=self.seed)
         self.centroids = centers
 
         # phases 3 and 4: assign, load
@@ -270,9 +296,16 @@ class IVFFlatIndex:
         self.post_values = self.post_vsq = None  # free the old copy first
         flat = self.postings_flat
         data = self.table.data
-        dim, cs = self.table.dim, self._post_cs
+        dim, cs = data.shape[1], self._post_cs
         pv = torch.empty((flat.numel(), dim), dtype=data.dtype,
                          device=self.device)
+        if self._is_bit:  # packed words; no norms
+            for s in range(0, flat.numel(), 1 << 20):
+                f = flat[s: s + (1 << 20)]
+                pv[s: s + (1 << 20)] = torch.where(
+                    (f >= 0)[:, None], data[torch.clamp(f, min=0).long()], 0)
+            self.post_values = pv.view(-1, cs, dim)
+            return
         vsq = torch.empty(flat.numel(), dtype=torch.float32,
                           device=self.device)
         chunk = max(1, (1 << 27) // (4 * dim))  # ≤ 128 MB of f32 a chunk
@@ -333,6 +366,9 @@ class IVFFlatIndex:
         blk = torch.as_tensor(self._blk_start[sa] + pos // cs, device=dev)
         off_in = torch.as_tensor(pos % cs, device=dev)
         v = self.table.data[torch.as_tensor(sr, device=dev)]
+        if self._is_bit:
+            self.post_values[blk, off_in] = v
+            return
         if self._normalized:
             vf = v.float()
             nrm = torch.sqrt(torch.sum(vf * vf, dim=-1, keepdim=True))
@@ -395,6 +431,13 @@ class IVFFlatIndex:
 
     # ----------------------------------------------------------------- search
     def _form_queries(self, q) -> torch.Tensor:
+        """(Q, D) f32 queries: normalized for cosine, unpacked 0/1 bits for
+        bit."""
+        if self._is_bit:
+            from .flat import _coerce_bit_queries
+
+            return D.unpack_bits(_coerce_bit_queries(q, self.table),
+                                 self.table.dim)
         qs = _coerce_dense_queries(q, self.table.dim, self.device)
         if self._normalized:
             norms = torch.sqrt(torch.sum(qs * qs, dim=1, keepdim=True))
@@ -451,8 +494,10 @@ class IVFFlatIndex:
 
     def _probe_order(self, qs: torch.Tensor, max_probes: int) -> torch.Tensor:
         """GetScanLists (ivfscan.c:47-118): lists nearest-first, ties to the
-        lower list id.  Spherical opclasses order by −ip (unit centers)."""
-        metric = Metric.IP if self._spherical else self.metric
+        lower list id.  Spherical opclasses order by −ip (unit centers);
+        bit by L2 on the unpacked bits."""
+        metric = (Metric.IP if self._spherical
+                  else Metric.L2 if self._is_bit else self.metric)
         scores = D.dense_scores(metric, qs, self.centroids)
         return topk_smallest(scores, max_probes)[1]
 
@@ -460,7 +505,8 @@ class IVFFlatIndex:
                      any_dead: bool = True):
         """GetScanItems for one probe window (ivfscan.c:123-187), by the
         inverted scan at high coverage and by block gathers below it."""
-        if qs.shape[0] * batch * self.INVERT_COVERAGE >= self.lists:
+        if (not self._is_bit
+                and qs.shape[0] * batch * self.INVERT_COVERAGE >= self.lists):
             self.last_path = "inverted"
             return self._probe_batch_inverted(qs, order, off, batch, k,
                                               valid, fmask, any_dead)
@@ -514,8 +560,9 @@ class IVFFlatIndex:
         selb = self._blk_start_dev[sel][:, :, None] + j
         selb = torch.where(j < self._blk_occ_dev[sel][:, :, None], selb,
                            -1).reshape(nq, batch * ncs)
-        # blocks per chunk: a gathered chunk of ≤ 64 MB of f32
-        bc = max(1, (1 << 26) // max(nq * cs * t.dim * 4, 1))
+        # blocks per chunk: a gathered chunk of ≤ 64 MB
+        width = t.words if self._is_bit else t.dim
+        bc = max(1, (1 << 26) // max(nq * cs * width * 4, 1))
         nb = selb.shape[1]
         n_chunks = max(1, -(-nb // bc))
         bc = -(-nb // n_chunks)
@@ -525,8 +572,9 @@ class IVFFlatIndex:
         if fmask is None:
             fmask = torch.ones(t.capacity, dtype=torch.bool,
                                device=self.device)
+        qrep = D.pack_bits(qs > 0.5) if self._is_bit else qs
         return _probe_topk(self.metric, self.post_values,
-                           self.postings_flat.view(-1, cs), qs, selb, valid,
+                           self.postings_flat.view(-1, cs), qrep, selb, valid,
                            fmask, k, n_chunks)
 
 
@@ -700,11 +748,14 @@ def _probe_topk(metric, post_values, post_blocks, qs, selb, valid, fmask,
                 k: int, n_chunks: int):
     """(Q, NB) compact block ids → smallest-k (stored distances, row ids):
     each step gathers (Q, Bc) whole blocks, scores them and merges them
-    into a running top-k."""
+    into a running top-k.  Hamming (``qs`` packed words) scores the
+    blocks' slots in K5."""
     nq, nb = selb.shape
     bc = nb // n_chunks
+    cs = post_blocks.shape[1]
     qf = qs.float()
     qsq = torch.sum(qf * qf, dim=-1)[:, None]
+    slot = torch.arange(cs, dtype=torch.int32, device=qs.device)
     best_d = torch.full((nq, k), torch.inf, device=qs.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=qs.device)
     D.dot_precision()
@@ -715,13 +766,19 @@ def _probe_topk(metric, post_values, post_blocks, qs, selb, valid, fmask,
                           -1).reshape(nq, -1)
         safe = torch.clamp(ids, min=0).long()
         ok = (ids >= 0) & valid[safe] & fmask[safe]
-        v = post_values[safeb].reshape(nq, ids.shape[1], -1).float()
-        ip = torch.bmm(v, qf[:, :, None])[:, :, 0]  # (Q, C)
-        if metric is Metric.L2:
-            vsq = torch.sum(v * v, dim=-1)
-            s = torch.clamp(qsq - 2.0 * ip + vsq, min=0.0)
-        else:  # IP / normalized cosine order by −ip
-            s = -ip
+        if metric is Metric.HAMMING:  # the blocks' slots through K5
+            slots = torch.where(blk_c[:, :, None] >= 0,
+                                blk_c[:, :, None] * cs + slot, -1)
+            s = bit_point_scores(metric, qs, post_values.view(
+                -1, post_values.shape[2]), slots.reshape(nq, -1))
+        else:
+            v = post_values[safeb].reshape(nq, ids.shape[1], -1).float()
+            ip = torch.bmm(v, qf[:, :, None])[:, :, 0]  # (Q, C)
+            if metric is Metric.L2:
+                vsq = torch.sum(v * v, dim=-1)
+                s = torch.clamp(qsq - 2.0 * ip + vsq, min=0.0)
+            else:  # IP / normalized cosine order by −ip
+                s = -ip
         s = torch.where(ok, s, torch.inf)
         d, i = merge_topk(best_d, best_i, s, ids, k)
         best_d, best_i = d, torch.where(torch.isinf(d), -1, i)

@@ -14,11 +14,12 @@ and fsynced, then ``manifest.json`` is replaced atomically (tmp + fsync +
 ``os.replace``), then the directory is fsynced and older epochs' files are
 removed.  A crash leaves either the previous epoch or the new one.
 
-The port holds dense tables, dense HNSW graphs (with or without heap-TID
-dedup, either backlink mode, vacuumed or not) and dense IVFFlat indexes.
-Any other checkpoint raises
-:class:`~pgvector_tpu_torch.errors.FeatureNotSupported` naming what is
-missing; none is loaded into something that answers differently.
+The port holds dense, bit and sparse tables, HNSW graphs over each (with
+or without heap-TID dedup, either backlink mode, vacuumed or not) and
+dense and bit IVFFlat indexes.  Bit words are written as the reference's
+uint32 arrays.  A checkpoint of another kind of table raises
+:class:`~pgvector_tpu_torch.errors.FeatureNotSupported`; none is loaded
+into something that answers differently.
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ import torch
 
 from ..errors import DataException, FeatureNotSupported
 from ..ops.metric import Metric
-from ..store.table import DenseTable
-from .convert import as_tensor, hnsw_from_numpy, ivfflat_from_numpy
+from ..store.table import BitTable, DenseTable, SparseTable
+from .convert import (as_tensor, hnsw_from_numpy, ivfflat_from_numpy,
+                      words_as_int32)
 
 MAGIC = "pgvector-tpu"
 FORMAT_VERSION = 1
@@ -170,38 +172,65 @@ def _dtype_name(dtype: torch.dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
-def save_table(table: DenseTable, path: str) -> None:
-    if not isinstance(table, DenseTable):
+def _words(t: torch.Tensor) -> np.ndarray:
+    """Packed bit words as the reference's uint32 array."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def save_table(table, path: str) -> None:
+    n = table.count
+    if isinstance(table, DenseTable):
+        kind, arrays = "dense", {"data": table.data[:n]}
+        extra = {"dim": table.dim, "dtype": _dtype_name(table.dtype)}
+    elif isinstance(table, BitTable):
+        kind, arrays = "bit", {"data": _words(table.data[:n])}
+        extra = {"dim": table.dim}
+    elif isinstance(table, SparseTable):
+        kind = "sparse"
+        arrays = {"idx": table.idx[:n], "val": table.val[:n]}
+        extra = {"dim": table.dim, "nnz_cap": table.nnz_cap}
+    else:
         raise DataException(f"cannot checkpoint {type(table).__name__}")
     epoch = _begin_save(path)
-    n = table.count
-    _save_arrays(path, {"data": table.data[:n], "valid": table.valid[:n]},
-                 epoch)
-    _write_manifest(path, {"object": "table", "kind": "dense", "count": n,
-                           "dim": table.dim,
-                           "dtype": _dtype_name(table.dtype)}, epoch)
+    arrays["valid"] = table.valid[:n]
+    _save_arrays(path, arrays, epoch)
+    _write_manifest(path, {"object": "table", "kind": kind, "count": n,
+                           **extra}, epoch)
 
 
-def load_table(path: str, device=None) -> DenseTable:
+def load_table(path: str, device=None):
     """The table of a checkpoint, on ``device`` (default: the card, as
     every table)."""
     m = _read_manifest(path, "table")
-    if m["kind"] != "dense":
+    count, ep = int(m["count"]), m.get("epoch", 0)
+    cap = max(count, 8)
+    if m["kind"] == "dense":
+        if m["dtype"] not in _DTYPES:
+            raise FeatureNotSupported(
+                f'dense tables of {m["dtype"]} are not ported yet')
+        dtype = _DTYPES[m["dtype"]]
+        table = DenseTable(int(m["dim"]), dtype=dtype, capacity=cap,
+                           device=device)
+        if count:
+            table.data[:count] = as_tensor(_load(path, "data", ep),
+                                           table.device, dtype)
+            table.count = count
+    elif m["kind"] == "bit":
+        table = BitTable(int(m["dim"]), capacity=cap, device=device)
+        if count:
+            table.insert_words(words_as_int32(_load(path, "data", ep)))
+    elif m["kind"] == "sparse":
+        table = SparseTable(int(m["dim"]), nnz_cap=int(m["nnz_cap"]),
+                            capacity=cap, device=device)
+        if count:
+            table.insert_arrays(_load(path, "idx", ep), _load(path, "val", ep),
+                                _checked=True)
+    else:
         raise FeatureNotSupported(
             f'{m["kind"]} table checkpoints are not ported yet')
-    if m["dtype"] not in _DTYPES:
-        raise FeatureNotSupported(
-            f'dense tables of {m["dtype"]} are not ported yet')
-    count, ep = int(m["count"]), m.get("epoch", 0)
-    dtype = _DTYPES[m["dtype"]]
-    table = DenseTable(int(m["dim"]), dtype=dtype, capacity=max(count, 8),
-                       device=device)
     if count:
-        table.data[:count] = as_tensor(_load(path, "data", ep), table.device,
-                                       dtype)
         table.valid[:count] = as_tensor(_load(path, "valid", ep),
                                         table.device, torch.bool)
-        table.count = count
     return table
 
 
@@ -217,17 +246,21 @@ def _plain(v):
 
 
 def save_hnsw(idx, path: str) -> None:
-    """The graph arrays and manifest of the reference's ``save_hnsw``."""
+    """The graph arrays and manifest of the reference's ``save_hnsw``:
+    ``values0`` (and, for sparse, ``values1``) are the index's value
+    arrays."""
     epoch = _begin_save(path)
     n, nu = idx.n_elems, idx.n_upper
-    _save_arrays(path, {
+    arrays = {
         "nbr0": idx.nbr0[:n], "nbr_up": idx.nbr_up[:nu],
         "kept0": idx.kept0[:n], "kept_up": idx.kept_up[:nu],
         "up_slot": idx.up_slot[:n], "levels": idx.levels[:n],
-        "elem_rows": idx.elem_rows[:n], "values0": idx.values[:n],
-    }, epoch)
+        "elem_rows": idx.elem_rows[:n]}
+    for j, v in enumerate(idx._value_arrays()):
+        arrays[f"values{j}"] = _words(v[:n]) if idx.kind == "bit" else v[:n]
+    _save_arrays(path, arrays, epoch)
     _write_manifest(path, {
-        "object": "hnsw", "kind": "dense", "metric": idx.metric.name,
+        "object": "hnsw", "kind": idx.kind, "metric": idx.metric.name,
         "m": idx.m, "ef_construction": idx.ef_construction,
         "n_elems": n, "n_upper": nu,
         "nbr_up_width": int(idx.nbr_up.shape[1]),
@@ -239,18 +272,18 @@ def save_hnsw(idx, path: str) -> None:
     }, epoch)
 
 
-def load_hnsw(table: DenseTable, path: str):
-    """The graph of an HNSW checkpoint over ``table`` (on its device):
-    dedup or not, either backlink mode, vacuumed (with free slots) or
-    not.  Bit and sparse graphs are not ported yet."""
+def load_hnsw(table, path: str):
+    """The graph of an HNSW checkpoint over ``table`` (dense, bit or
+    sparse, on its device): dedup or not, either backlink mode, vacuumed
+    (with free slots) or not."""
     m = _read_manifest(path, "hnsw")
-    if m.get("kind", "dense") != "dense":
-        raise FeatureNotSupported(
-            f'hnsw checkpoint over a {m["kind"]} table is not ported yet')
     ep = m.get("epoch", 0)
     arrays = {}
-    for name in ("nbr0", "nbr_up", "kept0", "kept_up", "up_slot", "levels",
-                 "elem_rows", "values0"):
+    names = ("nbr0", "nbr_up", "kept0", "kept_up", "up_slot", "levels",
+             "elem_rows", "values0")
+    if m.get("kind") == "sparse":
+        names += ("values1",)
+    for name in names:
         arrays[name] = _load(path, name, ep)
     meta = dict(m)
     meta.setdefault("nbr_up_width", int(arrays["nbr_up"].shape[1]))
@@ -272,18 +305,17 @@ def save_ivfflat(idx, path: str) -> None:
                         "assignments": idx.assignments}, epoch)
     _write_manifest(path, {"object": "ivfflat", "metric": idx.metric.name,
                            "lists": idx.lists, "seed": idx.seed,
-                           "is_bit": False}, epoch)
+                           "is_bit": idx._is_bit}, epoch)
 
 
-def load_ivfflat(table: DenseTable, path: str):
-    """The IVFFlat index of a checkpoint over ``table`` (on its device)."""
+def load_ivfflat(table, path: str):
+    """The IVFFlat index of a checkpoint over ``table`` (a DenseTable, or
+    a BitTable for a bit index; on its device).  The f32 centers are
+    stored; the postings are rebuilt from the assignments."""
     m = _read_manifest(path, "ivfflat")
-    if m.get("is_bit"):
-        raise FeatureNotSupported(
-            "ivfflat checkpoint over a bit table is not ported yet")
     ep = m.get("epoch", 0)
     arrays = {name: _load(path, name, ep)
               for name in ("centroids_f32", "list_lens", "assignments")}
     return ivfflat_from_numpy(table, arrays, {
         "metric": Metric[m["metric"]], "lists": m["lists"],
-        "seed": m["seed"], "is_bit": False})
+        "seed": m["seed"], "is_bit": bool(m.get("is_bit", False))})

@@ -7,7 +7,10 @@ the trained centers and each row's list (:390-404).
 arrays and manifest fields and return a port index holding the same
 state, so an index built by either package is searched by the port;
 :mod:`.checkpoint` only reads and writes the files.  A 16-bit array may
-come as a CPU ``torch.bfloat16`` tensor (numpy has no bfloat16).
+come as a CPU ``torch.bfloat16`` tensor (numpy has no bfloat16); packed
+bit words come as the reference's uint32 (or the port's int32) arrays.
+:func:`table_from_numpy`, :func:`bit_table_from_numpy` and
+:func:`sparse_table_from_numpy` fill a table from arrays in bulk.
 """
 
 from __future__ import annotations
@@ -17,13 +20,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..errors import DataException, FeatureNotSupported
-from ..index.hnsw import HNSWIndex, _dup_keys, _host_array
+from ..errors import DataException
+from ..index.hnsw import HNSWIndex, _dup_keys, _host_rows
 from ..index.ivfflat import IVFFlatIndex
 from ..ops.metric import Metric
-from ..store.table import DenseTable
+from ..store.table import BitTable, DenseTable, SparseTable
 
-#: the arrays and manifest fields save_hnsw writes for a dense index
+#: the arrays and manifest fields save_hnsw writes (a sparse index also
+#: writes ``values1``, the values beside ``values0``'s indices)
 HNSW_ARRAYS = ("nbr0", "nbr_up", "kept0", "kept_up", "up_slot", "levels",
                "elem_rows", "values0")
 HNSW_FIELDS = ("m", "ef_construction", "entry", "entry_level", "n_elems",
@@ -55,9 +59,46 @@ def table_from_numpy(db: np.ndarray, valid: np.ndarray,
     return table
 
 
-def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
+def words_as_int32(a) -> torch.Tensor:
+    """Packed bit words (uint32 or int32, numpy or tensor) as an int32
+    tensor with the same bit patterns."""
+    if torch.is_tensor(a):
+        return a.to(torch.int32)
+    return torch.from_numpy(np.array(a, copy=True).view(np.int32))
+
+
+def bit_table_from_numpy(words, dim: int, valid: np.ndarray,
+                         device=None) -> BitTable:
+    """A BitTable of ``dim`` bits on ``device`` (default: the card)
+    holding packed rows ``words`` (N, ceil(dim/32)), uint32 or int32,
+    with validity ``valid``."""
+    words = words_as_int32(words)
+    table = BitTable(dim, capacity=max(len(words), 1), device=device)
+    table.insert_words(words)
+    table.valid[: len(words)] = torch.as_tensor(
+        np.asarray(valid, dtype=bool), device=table.device)
+    return table
+
+
+def sparse_table_from_numpy(idx, val, dim: int, valid: np.ndarray,
+                            nnz_cap: int = 0, device=None) -> SparseTable:
+    """A SparseTable on ``device`` (default: the card) holding padded CSR
+    rows ``idx`` / ``val`` (N, P): ascending distinct indices padded with
+    SPARSE_PAD, non-zero values, 0 at the pads; ``nnz_cap`` defaults to
+    P."""
+    idx = torch.as_tensor(idx, dtype=torch.int32)
+    table = SparseTable(dim, nnz_cap=nnz_cap or idx.shape[1],
+                        capacity=max(len(idx), 1), device=device)
+    table.insert_arrays(idx, val)
+    table.valid[: len(idx)] = torch.as_tensor(
+        np.asarray(valid, dtype=bool), device=table.device)
+    return table
+
+
+def hnsw_from_numpy(table, arrays: Dict[str, np.ndarray],
                     meta: dict, device=None) -> HNSWIndex:
-    """An HNSWIndex over ``table`` holding the graph in ``arrays`` (the
+    """An HNSWIndex over ``table`` (dense, bit or sparse, as the
+    manifest's ``kind``) holding the graph in ``arrays`` (the
     ``save_hnsw`` arrays, sliced to ``n_elems`` / ``n_upper`` rows) and
     ``meta`` (its manifest, which also names the metric).  ``dedup``
     defaults to True and ``free_slots`` to none, as in the reference's
@@ -68,9 +109,14 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
         [f for f in HNSW_FIELDS if f not in meta]
     if missing:
         raise DataException(f"hnsw state lacks {', '.join(missing)}")
-    if meta.get("kind", "dense") != "dense":
-        raise FeatureNotSupported(
-            f'hnsw over {meta["kind"]} tables is not ported yet')
+    kind = meta.get("kind", "dense")
+    want = {"dense": DenseTable, "bit": BitTable, "sparse": SparseTable}
+    if not isinstance(table, want.get(kind, ())):
+        raise DataException(
+            f"an hnsw graph over a {kind} table cannot index "
+            f"{type(table).__name__}")
+    if kind == "sparse" and "values1" not in arrays:
+        raise DataException("hnsw state lacks values1")
     if device is not None and torch.device(device) != table.device:
         raise DataException("the index lives on its table's device")
     metric = meta["metric"]
@@ -110,11 +156,21 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
             pad = np.full((nu, width - a.shape[1], idx.m), fill, a.dtype)
             a = np.concatenate([a, pad], axis=1)
         getattr(idx, name)[:nu] = torch.tensor(a[:, :width], device=dev)
-    # restored values are index-private, whatever they aliased when saved
+    # restored values are index-private, whatever they aliased when saved:
+    # fresh (cap, ...) arrays of the free-slot fill
     idx._alias_values = False
-    idx.values = torch.zeros((idx.cap_e, table.dim), dtype=idx._val_dtype,
-                             device=dev)
-    idx.values[:n] = as_tensor(arrays["values0"][:n], dev, idx._val_dtype)
+    if kind == "dense":
+        saved = [as_tensor(arrays["values0"][:n], dev, idx._val_dtype)]
+    elif kind == "bit":
+        saved = [words_as_int32(arrays["values0"][:n]).to(dev)]
+    else:
+        saved = [as_tensor(arrays[f"values{j}"][:n], dev) for j in (0, 1)]
+    fresh = []
+    for a, f in zip(saved, idx._value_fills()):
+        full = a.new_full((idx.cap_e,) + tuple(a.shape[1:]), f)
+        full[:n] = a
+        fresh.append(full)
+    idx._set_value_arrays(fresh)
     # each row's element, the last element holding it winning, as the
     # reference's loader fills it element by element
     er = idx.elem_rows[:n]
@@ -122,14 +178,15 @@ def hnsw_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
     idx.row_to_elem = dict(zip(er[e_of, slot].tolist(), e_of.tolist()))
     if idx.dedup and n:
         live = np.flatnonzero(levels >= 0)
-        keys = _dup_keys(_host_array(idx.values[:n]))
+        keys = _dup_keys(_host_rows(tuple(a[:n]
+                                          for a in idx._value_arrays())))
         idx._dup_index = {keys[e]: int(e) for e in live}
     idx._dirty = True
     idx._nbr_vals = None
     return idx
 
 
-def ivfflat_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
+def ivfflat_from_numpy(table, arrays: Dict[str, np.ndarray],
                        meta: dict) -> IVFFlatIndex:
     """An IVFFlatIndex over ``table`` with the trained centers and row
     assignments of ``arrays`` (the ``save_ivfflat`` arrays) and ``meta``
@@ -140,8 +197,10 @@ def ivfflat_from_numpy(table: DenseTable, arrays: Dict[str, np.ndarray],
         [f for f in IVFFLAT_FIELDS if f not in meta]
     if missing:
         raise DataException(f"ivfflat state lacks {', '.join(missing)}")
-    if meta["is_bit"]:
-        raise FeatureNotSupported("ivfflat over bit tables is not ported yet")
+    if bool(meta["is_bit"]) != isinstance(table, BitTable):
+        raise DataException(
+            f"an ivfflat index with is_bit={bool(meta['is_bit'])} cannot "
+            f"index {type(table).__name__}")
     metric = meta["metric"]
     metric = Metric[metric] if isinstance(metric, str) else metric
     idx = IVFFlatIndex(table, metric, lists=int(meta["lists"]),

@@ -41,6 +41,12 @@ _SIGNATURES = {
     # metric, out_d, out_p, stream
     "pgvt_packed_hop": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
+    # qs, db, pop, valid, nq, n, w, k, jaccard, splits, tiles_per_split,
+    # part_d, part_i, out_d, out_i, stream
+    "pgvt_bit_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P],
+    # qs, table, rows, nb, r, w, jaccard, out, stream
+    "pgvt_bit_point_scores": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,10 @@
-"""Batched dense distances — counterpart of ``pgvector_tpu.ops.distance``
-(the dense part; bit and sparse scores come with their tables).
+"""Batched distances — counterpart of ``pgvector_tpu.ops.distance``.
 
-Every function computes a full (Q, N) block: L2² / IP / cosine ride one
-``q @ db.T`` product plus row norms, L1 is an elementwise reduction.
+Every function computes a full (Q, N) block: dense L2² / IP / cosine ride
+one ``q @ db.T`` product plus row norms, L1 is an elementwise reduction;
+Hamming / Jaccard are XOR / AND plus a popcount over packed 32-bit words;
+sparse metrics are the overlap inner product plus norm corrections, by a
+searchsorted merge join of sorted index rows.
 Distances are the *stored* forms used by index ordering (L2 → squared,
 IP → negative, cosine → 1 - cos); ``metric.stored_to_user`` converts.
 Accumulation is f32, like the reference kernels (src/vector.c:560-735).
@@ -13,6 +15,7 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
 from ..config import config
@@ -127,3 +130,182 @@ def dense_pair(metric: Metric, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     if metric is Metric.L1:
         return torch.sum(torch.abs(af - bf), dim=-1)
     raise ValueError(f"metric {metric} is not a dense metric")
+
+
+# ---------------------------------------------------------------------------
+# binary: packed 32-bit words, MSB first within each word
+# ---------------------------------------------------------------------------
+#
+# The reference packs bits into uint32 words; torch covers uint32 thinly on
+# CUDA, so the port stores int32 words with the same bit patterns (bit 31
+# set makes a word negative) and never shifts one arithmetically.
+
+#: popcount of every byte value: the plain versions' popcount (torch has
+#: no popcount operator)
+_POP8 = torch.tensor([bin(i).count("1") for i in range(256)],
+                     dtype=torch.int32)
+
+
+def pack_bits(bits) -> torch.Tensor:
+    """(…, D) bools → (…, ceil(D/32)) int32 words: bit i → word i//32, bit
+    31-(i%32) (the reference's ``pack_bits``; the MSB-first byte layout of
+    VARBITS / binary_quantize, src/vector.c:952-978, read big-endian).  A
+    numpy array is packed on the host and comes back as a CPU tensor; a
+    tensor is packed on its own device."""
+    if not torch.is_tensor(bits):
+        arr = np.asarray(bits, dtype=bool)
+        d = arr.shape[-1]
+        pad = (-d) % 32
+        if pad:
+            arr = np.concatenate(
+                [arr, np.zeros(arr.shape[:-1] + (pad,), bool)], axis=-1)
+        by = np.packbits(arr, axis=-1)  # MSB-first bytes
+        words = np.ascontiguousarray(by).view(">u4").astype(np.uint32)
+        return torch.from_numpy(words.view(np.int32).copy())
+    d = bits.shape[-1]
+    pad = (-d) % 32
+    b = bits.to(torch.int64)
+    if pad:
+        b = torch.cat([b, b.new_zeros(b.shape[:-1] + (pad,))], dim=-1)
+    b = b.reshape(b.shape[:-1] + ((d + pad) // 32, 32))
+    shifts = torch.arange(31, -1, -1, device=b.device)
+    w = torch.sum(b << shifts, dim=-1)  # in [0, 2^32)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, dim: int) -> torch.Tensor:
+    """(…, W) int32 words → (…, dim) f32 in {0, 1}, MSB first (the
+    reference's ``ivfflat._unpack_words``)."""
+    shifts = torch.arange(31, -1, -1, device=words.device)
+    bits = (words.to(torch.int64)[..., :, None] >> shifts) & 1
+    flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,))
+    return flat[..., :dim].to(torch.float32)
+
+
+def popcount_rows(words: torch.Tensor) -> torch.Tensor:
+    """Row popcounts of packed words (…, W) → (…,) int32."""
+    by = words.contiguous().view(torch.uint8).to(torch.int32)
+    pc = _POP8.to(words.device)[by]
+    return torch.sum(pc, dim=-1, dtype=torch.int32)
+
+
+def jaccard_from_counts(ab: torch.Tensor, aa: torch.Tensor,
+                        bb: torch.Tensor) -> torch.Tensor:
+    """1 - ab / (aa + bb - ab) in f32, 1 where ab == 0, in the reference's
+    order of operations (``distance.bit_scores``, src/bitutils.c:98-131)."""
+    ab, aa, bb = ab.float(), aa.float(), bb.float()
+    denom = aa + bb - ab
+    return torch.where(ab == 0, 1.0,
+                       1.0 - ab / torch.where(denom > 0, denom, 1.0))
+
+
+def bit_scores(metric: Metric, q: torch.Tensor, db: torch.Tensor,
+               db_pop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Q, N) Hamming or Jaccard distances of packed words (Q, W) against
+    (N, W): popcount(a XOR b) (src/bitutils.c:49-73), or 1 - |a∩b| / |a∪b|
+    with empty ∩ empty → 1 (src/bitutils.c:98-131)."""
+    if metric is Metric.HAMMING:
+        return popcount_rows(q[:, None, :] ^ db[None, :, :]).float()
+    if metric is Metric.JACCARD:
+        ab = popcount_rows(q[:, None, :] & db[None, :, :])
+        aa = popcount_rows(q)[:, None]
+        bb = (popcount_rows(db) if db_pop is None else db_pop)[None, :]
+        return jaccard_from_counts(ab, aa, bb)
+    raise ValueError(f"metric {metric} is not a bit metric")
+
+
+# ---------------------------------------------------------------------------
+# sparse: padded CSR rows {indices int32 (N, P) sorted, padded with
+# SPARSE_PAD; values f32 (N, P), 0 at pads} against sparse queries
+# ---------------------------------------------------------------------------
+
+#: index padding sentinel, above any valid index (dims < 2^30)
+SPARSE_PAD = 2**30
+
+
+def scatter_dense(idx: torch.Tensor, val: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """Padded CSR rows (R, P) → dense (R, dim + 1) f32: pads (SPARSE_PAD,
+    value 0) land in the overflow column ``dim``, which holds 0; indices
+    are distinct per row, so a scatter-add sets them."""
+    out = torch.zeros((idx.shape[0], dim + 1), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_add_(1, torch.clamp(idx, max=dim).long(), val.float())
+
+
+def _overlap_gather(q_idx: torch.Tensor, q_val: torch.Tensor,
+                    idx: torch.Tensor):
+    """For each stored entry's index, the matching query value (0 when
+    absent) and whether it matched: the vectorized merge join of
+    src/sparsevec.c:822-932.  ``q_idx`` is sorted, padded with
+    SPARSE_PAD: one query (Pq,) against rows (N, P), or a batch (Q, Pq)
+    against shared rows (N, P) or per-query rows (Q, R, P)."""
+    last = q_idx.shape[-1] - 1
+    if q_idx.ndim == 1:
+        pos = torch.searchsorted(q_idx.contiguous(), idx.reshape(-1))
+        pos = torch.clamp(pos, max=last).reshape(idx.shape)
+        match = q_idx[pos] == idx
+        return torch.where(match, q_val[pos], 0.0), match
+    nq = q_idx.shape[0]
+    if idx.ndim == 3:
+        flat = idx.reshape(nq, -1)
+    else:
+        flat = idx.reshape(1, -1).expand(nq, -1)
+    pos = torch.searchsorted(q_idx.contiguous(), flat.contiguous())
+    pos = torch.clamp(pos, max=last)
+    match = torch.gather(q_idx, 1, pos) == flat
+    qv = torch.where(match, torch.gather(q_val, 1, pos), 0.0)
+    shape = (nq,) + tuple(idx.shape[-2:])
+    return qv.reshape(shape), match.reshape(shape)
+
+
+def _sparse_from_overlap(metric: Metric, qv_at, match, q_val, val,
+                         row_sq=None, row_abs=None) -> torch.Tensor:
+    """The stored distances from the overlap: L2² = |q|² + |r|² - 2·ip,
+    -IP, cosine 1 - ip/(|q||r|), L1 = Σ|q| + Σ|r| + Σ_overlap(|qv-rv| -
+    |qv| - |rv|) (src/sparsevec.c:822-1056).  ``q_val`` (…, Pq) carries
+    the leading dims of ``val`` (…, R, P) minus R."""
+    if metric is Metric.L1:
+        overlap = torch.sum(torch.where(
+            match, torch.abs(qv_at - val) - torch.abs(qv_at) - torch.abs(val),
+            0.0), dim=-1)
+        q_abs = torch.sum(torch.abs(q_val), dim=-1, keepdim=True)
+        r_abs = torch.sum(torch.abs(val), dim=-1) if row_abs is None else row_abs
+        return q_abs + r_abs + overlap
+    ip = torch.sum(qv_at * val, dim=-1)
+    if metric is Metric.IP:
+        return -ip
+    q_sq = torch.sum(q_val * q_val, dim=-1, keepdim=True)
+    r_sq = torch.sum(val * val, dim=-1) if row_sq is None else row_sq
+    if metric is Metric.L2:
+        return torch.clamp(q_sq + r_sq - 2.0 * ip, min=0.0)
+    if metric is Metric.COSINE:
+        denom = torch.sqrt(q_sq * r_sq)
+        cos = torch.where(denom > 0,
+                          ip / torch.where(denom > 0, denom, 1.0), -torch.inf)
+        return 1.0 - cos
+    raise ValueError(f"metric {metric} is not a sparse metric")
+
+
+def sparse_scores(metric: Metric, q_idx: torch.Tensor, q_val: torch.Tensor,
+                  idx: torch.Tensor, val: torch.Tensor,
+                  row_sq: Optional[torch.Tensor] = None,
+                  row_abs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N,) stored distances from one sparse query (q_idx, q_val: (Pq,),
+    sorted, padded with SPARSE_PAD) to every row of (idx, val)."""
+    qv_at, match = _overlap_gather(q_idx, q_val, idx)
+    return _sparse_from_overlap(metric, qv_at, match, q_val, val, row_sq,
+                                row_abs)
+
+
+def sparse_scores_batch(metric: Metric, q_idx: torch.Tensor,
+                        q_val: torch.Tensor, idx: torch.Tensor,
+                        val: torch.Tensor,
+                        row_sq: Optional[torch.Tensor] = None,
+                        row_abs: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(Q, N) stored distances for a batch of sparse queries (Q, Pq)
+    against rows (N, P), or against per-query rows (Q, R, P) → (Q, R)."""
+    qv_at, match = _overlap_gather(q_idx, q_val, idx)
+    return _sparse_from_overlap(metric, qv_at, match, q_val, val, row_sq,
+                                row_abs)

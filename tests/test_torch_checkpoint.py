@@ -6,8 +6,9 @@ files; bfloat16 arrays as uint16 under the ``.bf16`` tag).  Each way
 round, one package saves a dense table, an HNSW graph (with or without
 heap-TID dedup, incremental backlinks, vacuumed) or an IVFFlat index, and
 the other loads it with the same bookkeeping and answers the same queries
-with the same ids apart from ties (distances within atol 1e-6).  Bit
-checkpoints, which the port cannot hold, raise FeatureNotSupported.
+with the same ids apart from ties (distances within atol 1e-6).  The same
+holds for bit and sparse tables, Hamming and sparse inner-product graphs
+and bit IVFFlat indexes; bit words travel as the reference's uint32.
 """
 
 import json
@@ -27,9 +28,11 @@ from pgvector_tpu.io import checkpoint as jck  # noqa: E402
 from pgvector_tpu.ops.metric import Metric as JMetric  # noqa: E402
 from pgvector_tpu.store.table import BitTable as JBitTable  # noqa: E402
 from pgvector_tpu.store.table import DenseTable as JTable  # noqa: E402
+from pgvector_tpu.store.table import SparseTable as JSparseTable  # noqa: E402
+from pgvector_tpu.types import SparseVec as JSparseVec  # noqa: E402
 from pgvector_tpu_torch import (  # noqa: E402
-    DataException, DenseTable, FeatureNotSupported, HNSWIndex, IVFFlatIndex,
-    Metric)
+    BitTable, DataException, DenseTable, FeatureNotSupported, HNSWIndex,
+    IVFFlatIndex, Metric, SparseTable, SparseVec)
 from pgvector_tpu_torch.io import checkpoint as tck  # noqa: E402
 from torch_parity import assert_same_topk  # noqa: E402
 
@@ -260,16 +263,111 @@ def test_ivfflat_port_to_reference(data, tmp_path):
 
 
 def test_bit_checkpoints_the_port_cannot_hold(tmp_path):
-    bits = np.random.default_rng(2).random((64, 32)) < 0.5
-    jt = JBitTable(32)
+    """Bit tables and bit IVFFlat indexes, each way round (the port holds
+    them now; the name is the one the earlier refusal had)."""
+    rng = np.random.default_rng(2)
+    bits = rng.random((600, 40)) < 0.5
+    q = rng.random((6, 40)) < 0.5
+    jt = JBitTable(40)
     jt.insert(bits)
+    jt.delete(np.arange(0, 600, 11))
     jck.save_table(jt, str(tmp_path / "t"))
-    with pytest.raises(FeatureNotSupported, match="bit table"):
-        tck.load_table(str(tmp_path / "t"), device="cpu")
+    tt = tck.load_table(str(tmp_path / "t"), device="cpu")
+    assert isinstance(tt, BitTable) and (tt.count, tt.dim) == (600, 40)
+    np.testing.assert_array_equal(tt.data[:600].numpy().view(np.uint32),
+                                  np.asarray(jt.data[:600]))
+    np.testing.assert_array_equal(tt.valid[:600].numpy(),
+                                  np.asarray(jt.valid[:600]))
     ref = JIVF(jt, JMetric.HAMMING, lists=4, seed=1)
     jck.save_ivfflat(ref, str(tmp_path / "i"))
-    with pytest.raises(FeatureNotSupported, match="bit table"):
-        tck.load_ivfflat(DenseTable(32, device="cpu"), str(tmp_path / "i"))
+    port = tck.load_ivfflat(tt, str(tmp_path / "i"))
+    np.testing.assert_array_equal(port.postings, ref.postings)
+    d0, r0 = ref.search(q, K, probes=2)
+    d1, r1 = port.search(q, K, probes=2)
+    np.testing.assert_array_equal(d1, d0)
+    np.testing.assert_array_equal(r1, r0)
+    # port → reference
+    tck.save_table(tt, str(tmp_path / "t2"))
+    tck.save_ivfflat(port, str(tmp_path / "i2"))
+    jt2 = jck.load_table(str(tmp_path / "t2"))
+    np.testing.assert_array_equal(np.asarray(jt2.data[:600]),
+                                  np.asarray(jt.data[:600]))
+    ref2 = jck.load_ivfflat(jt2, str(tmp_path / "i2"))
+    d2, r2 = ref2.search(q, K, probes=2)
+    np.testing.assert_array_equal(r2, r0)
+    with pytest.raises(DataException, match="cannot index"):
+        tck.load_ivfflat(DenseTable(40, device="cpu"), str(tmp_path / "i"))
+
+
+def _sparse_rows(seed, n, dim, nnz):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        c = np.sort(rng.choice(dim, rng.integers(1, nnz + 1), replace=False))
+        out.append((c, rng.normal(size=len(c)).astype(np.float32)))
+    return out
+
+
+def test_sparse_table_checkpoints_both_ways(tmp_path):
+    rows = _sparse_rows(3, 300, 50, 6)
+    jt = JSparseTable(50, nnz_cap=8)
+    jt.insert([JSparseVec(50, i, v) for i, v in rows])
+    jt.delete(np.arange(0, 300, 7))
+    jck.save_table(jt, str(tmp_path / "t"))
+    tt = tck.load_table(str(tmp_path / "t"), device="cpu")
+    assert isinstance(tt, SparseTable) and tt.nnz_cap == 8
+    np.testing.assert_array_equal(tt.idx[:300].numpy(), np.asarray(jt.idx[:300]))
+    np.testing.assert_array_equal(tt.val[:300].numpy(), np.asarray(jt.val[:300]))
+    np.testing.assert_array_equal(tt.valid[:300].numpy(),
+                                  np.asarray(jt.valid[:300]))
+    assert tt.get(5) == SparseVec(50, *rows[5])
+    tck.save_table(tt, str(tmp_path / "t2"))
+    jt2 = jck.load_table(str(tmp_path / "t2"))
+    np.testing.assert_array_equal(np.asarray(jt2.idx[:300]),
+                                  np.asarray(jt.idx[:300]))
+    np.testing.assert_array_equal(np.asarray(jt2.valid[:300]),
+                                  np.asarray(jt.valid[:300]))
+
+
+@pytest.mark.parametrize("kind", ["bit", "sparse"])
+def test_bit_and_sparse_graphs_both_ways(kind, tmp_path, hnsw_env):
+    """A Hamming graph and a sparse inner-product graph: the reference's
+    checkpoint searched by the port, and the port's by the reference."""
+    rng = np.random.default_rng(4)
+    if kind == "bit":
+        vals = rng.random((800, 64)) < 0.5
+        q = rng.random((8, 64)) < 0.5
+        jt, tt = JBitTable(64), BitTable(64, device="cpu")
+        jt.insert(vals)
+        tt.insert(vals)
+        metric = "HAMMING"
+        jq, tq = q, q
+    else:
+        rows = _sparse_rows(5, 800, 40, 6)
+        jt = JSparseTable(40, nnz_cap=8)
+        tt = SparseTable(40, nnz_cap=8, device="cpu")
+        jt.insert([JSparseVec(40, i, v) for i, v in rows])
+        tt.insert([SparseVec(40, i, v) for i, v in rows])
+        metric = "IP"
+        qrows = _sparse_rows(6, 8, 40, 6)
+        jq = [JSparseVec(40, i, v) for i, v in qrows]
+        tq = [SparseVec(40, i, v) for i, v in qrows]
+    ref = JHNSW(jt, JMetric[metric], m=8, ef_construction=32, wave_size=128,
+                beam_expand=4)
+    jck.save_hnsw(ref, str(tmp_path / "h"))
+    port = tck.load_hnsw(tt, str(tmp_path / "h"))
+    assert port.kind == kind and port.n_elems == ref.n_elems
+    assert port._dup_index == ref._dup_index
+    d0, r0 = ref.search(jq, K, ef_search=40)
+    d1, r1 = port.search(tq, K, ef_search=40)
+    tol = 0.0 if kind == "bit" else 1e-6
+    assert_same_topk(d0, r0, d1, r1, atol=tol, rtol=1e-5 if tol else 0.0)
+    tck.save_hnsw(port, str(tmp_path / "h2"))
+    ref2 = jck.load_hnsw(jt, str(tmp_path / "h2"))
+    d2, r2 = ref2.search(jq, K, ef_search=40)
+    assert_same_topk(d0, r0, d2, r2, atol=tol, rtol=1e-5 if tol else 0.0)
+    with pytest.raises(DataException, match="cannot index"):
+        tck.load_hnsw(DenseTable(8, device="cpu"), str(tmp_path / "h"))
 
 
 # ------------------------------------------------------------ the format

@@ -4,7 +4,9 @@ its hop tail alone) against their plain PyTorch versions; the HNSW and
 IVFFlat scans on CUDA against the same scans on the CPU; HNSW built with
 its defaults on the card, and its iterative scans and vacuum against the
 CPU's on the same graph; checkpoints loaded onto the card; k-means's
-generator on the table's device.
+generator on the table's device; K1 at 4,096 dims (the densified sparse
+scans); K4 (bit_topk) and K5 (bit_point_scores) equal to their plain
+versions, and the bit and sparse indexes on CUDA against the CPU.
 Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
 first use) and skips elsewhere.
 
@@ -22,7 +24,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from pgvector_tpu_torch import (  # noqa: E402
-    DenseTable, FlatIndex, HNSWIndex, IVFFlatIndex, Metric, config)
+    BinaryQuantizedIndex, BitTable, DenseTable, FlatIndex, HNSWIndex,
+    IVFFlatIndex, Metric, SparseTable, SparseVec, config)
+from pgvector_tpu_torch.ops import distance as TD  # noqa: E402
+from pgvector_tpu_torch.ops.bit_scan import (  # noqa: E402
+    bit_point_scores, bit_point_scores_plain, bit_topk, bit_topk_plain)
 from pgvector_tpu_torch.index import ivf_kmeans  # noqa: E402
 from pgvector_tpu_torch.io import checkpoint  # noqa: E402
 from pgvector_tpu_torch.io.convert import (  # noqa: E402
@@ -418,3 +424,200 @@ def test_hnsw_live_on_cuda_matches_cpu(dev, tmp_path):
         return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(r, gt)])
 
     assert recall(r1) >= recall(r0) - 0.02 and recall(r1) >= 0.9
+
+
+def test_fused_topk_at_4096_dims(dev):
+    """K1 at the densified sparse scans' width: (Q, 4,096) queries against
+    (tile, 4,096) rows of a few non-zeros each, within its bound."""
+    rng = np.random.default_rng(4096)
+    n, nq, d = 9000, 300, 4096
+    db = np.zeros((n, d), np.float32)
+    cols = rng.integers(0, d, size=(n, 32))
+    db[np.arange(n)[:, None], cols] = rng.random((n, 32))
+    q = np.zeros((nq, d), np.float32)
+    q[np.arange(nq)[:, None], rng.integers(0, d, size=(nq, 32))] = \
+        rng.random((nq, 32))
+    db, q = torch.tensor(db, device=dev), torch.tensor(q, device=dev)
+    for ip in (False, True):
+        dbsq = torch.zeros(n, device=dev) if ip else (db * db).sum(1)
+        for k in (10, 64):
+            d1, i1 = fused_topk(q, db, dbsq, k)
+            d0, i0 = fused_topk_plain(q, db, dbsq, k)
+            bound = k1_error_bound(q, db, dbsq, i0, i1).cpu().numpy()
+            assert_same_topk(d0.cpu(), i0.cpu(), d1.cpu(), i1.cpu(),
+                             atol=bound, rtol=0.0)
+
+
+def _words(rng, n, bits, dev, p=0.5):
+    return TD.pack_bits(rng.random((n, bits)) < p).to(dev)
+
+
+@pytest.mark.parametrize("bits", [20, 128, 3200])
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("metric", ["HAMMING", "JACCARD"])
+def test_bit_topk_kernel_equals_plain(dev, metric, k, bits):
+    """K4 against its plain version: the same ids and bitwise-equal
+    distances (integer popcounts; Jaccard's division rounds the same),
+    ties (everywhere at 20 and 128 bits) to the lower row; dead rows,
+    empty rows, a ragged query tile and several row splits."""
+    rng = np.random.default_rng(bits + k)
+    n, nq = 30011, 131
+    db = _words(rng, n, bits, dev)
+    db[100:200] = db[:100]
+    db[7] = 0
+    qs = _words(rng, nq, bits, dev)
+    qs[0] = 0
+    valid = torch.tensor(rng.random(n) > 0.1, device=dev)
+    pop = TD.popcount_rows(db)
+    launches = bit_topk.launches
+    d1, i1 = bit_topk(Metric[metric], qs, db, k, valid, pop)
+    torch.cuda.synchronize()
+    assert bit_topk.launches == launches + 1
+    d0, i0 = bit_topk_plain(Metric[metric], qs, db, k, valid, pop)
+    assert torch.equal(i1, i0) and torch.equal(d1, d0)
+
+
+@pytest.mark.parametrize("bits", [20, 128, 224, 3200])
+@pytest.mark.parametrize("metric", ["HAMMING", "JACCARD"])
+def test_bit_point_scores_kernel_equals_plain(dev, metric, bits):
+    """K5 against its plain version, bitwise, with -1 ids; 224 bits (7
+    words) takes the word-by-word loads."""
+    rng = np.random.default_rng(bits)
+    table = _words(rng, 5000, bits, dev)
+    qs = _words(rng, 700, bits, dev)
+    rows = torch.tensor(rng.integers(0, 5000, size=(700, 256)),
+                        dtype=torch.int32, device=dev)
+    rows[:, ::5] = -1
+    launches = bit_point_scores.launches
+    d1 = bit_point_scores(Metric[metric], qs, table, rows)
+    torch.cuda.synchronize()
+    assert bit_point_scores.launches == launches + 1
+    d0 = bit_point_scores_plain(Metric[metric], qs, table, rows)
+    assert torch.equal(d1, d0)
+
+
+def test_bit_kernels_reject(dev):
+    qs = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    db = torch.zeros((10, 2), dtype=torch.int32, device=dev)
+    ok = torch.ones(10, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        bit_topk(Metric.HAMMING, qs, db, 65, ok)
+    with pytest.raises(ValueError):
+        bit_topk(Metric.JACCARD, qs, db, 5, ok)  # no popcounts
+    with pytest.raises(ValueError):
+        bit_point_scores(Metric.L2, qs, db, torch.zeros((4, 3),
+                                                        dtype=torch.int32,
+                                                        device=dev))
+
+
+def _graph_state(idx):
+    n, nu = idx.n_elems, idx.n_upper
+    arrays = {"nbr0": idx.nbr0[:n].numpy(), "nbr_up": idx.nbr_up[:nu].numpy(),
+              "kept0": idx.kept0[:n].numpy(),
+              "kept_up": idx.kept_up[:nu].numpy(),
+              "up_slot": idx.up_slot[:n], "levels": idx.levels[:n],
+              "elem_rows": idx.elem_rows[:n]}
+    for j, v in enumerate(idx._value_arrays()):
+        arrays[f"values{j}"] = v[:n].numpy()
+    meta = {"metric": idx.metric.name, "m": idx.m, "kind": idx.kind,
+            "ef_construction": idx.ef_construction, "n_elems": n,
+            "n_upper": nu, "nbr_up_width": idx.nbr_up.shape[1],
+            "entry": idx.entry, "entry_level": idx.entry_level, "seed": 0,
+            "wave_size": idx.wave_size, "beam_expand": idx.beam_expand,
+            "backlink_mode": "wholesale", "dedup": idx.dedup}
+    return arrays, meta
+
+
+def test_bit_indexes_on_cuda_match_cpu(dev):
+    """Bit exact search (K4), a CPU-built Hamming graph carried to the card
+    (K5 hops), bit IVFFlat and a binary-quantized index, against the CPU."""
+    rng = np.random.default_rng(12)
+    bits = rng.random((8000, 256)) < 0.4
+    q = rng.random((50, 256)) < 0.4
+    cpu_t, gpu_t = BitTable(256, device="cpu"), BitTable(256, device=dev)
+    cpu_t.insert(bits)
+    gpu_t.insert(bits)
+    for metric in ("HAMMING", "JACCARD"):
+        launches = bit_topk.launches
+        d0, i0 = FlatIndex(cpu_t, Metric[metric]).search(q, 10)
+        d1, i1 = FlatIndex(gpu_t, Metric[metric]).search(q, 10)
+        assert bit_topk.launches == launches + 1
+        np.testing.assert_array_equal(d1, d0)
+        np.testing.assert_array_equal(i1, i0)
+        cpu_idx = HNSWIndex(cpu_t, Metric[metric], m=8, ef_construction=32,
+                            wave_size=512, beam_expand=4)
+        gpu_idx = hnsw_from_numpy(gpu_t, *_graph_state(cpu_idx))
+        launches = bit_point_scores.launches
+        h0, r0 = cpu_idx.search(q, 10, ef_search=40)
+        h1, r1 = gpu_idx.search(q, 10, ef_search=40)
+        assert bit_point_scores.launches > launches
+        assert_same_topk(h0, r0, h1, r1, atol=0.0, rtol=0.0)
+        built = HNSWIndex(gpu_t, Metric[metric], m=8, ef_construction=32,
+                          wave_size=512, beam_expand=4)
+        np.testing.assert_array_equal(built.levels, cpu_idx.levels)
+        _, rb = built.search(q, 10, ef_search=40)
+        hit = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(rb, i0)])
+        hit0 = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(r0, i0)])
+        assert hit >= hit0 - 0.03, (hit, hit0)
+    cpu_ivf = IVFFlatIndex(cpu_t, Metric.HAMMING, lists=16, seed=1)
+    state = ({"centroids_f32": cpu_ivf.centroids.numpy(),
+              "list_lens": cpu_ivf.list_lens,
+              "assignments": cpu_ivf.assignments},
+             {"metric": "HAMMING", "lists": 16, "seed": 1, "is_bit": True})
+    gpu_ivf = ivfflat_from_numpy(gpu_t, *state)
+    for probes in (1, 16):
+        d0, r0 = cpu_ivf.search(q, 10, probes=probes)
+        d1, r1 = gpu_ivf.search(q, 10, probes=probes)
+        np.testing.assert_array_equal(d1, d0)
+        np.testing.assert_array_equal(r1, r0)
+    dense = rng.normal(size=(6000, 64)).astype(np.float32)
+    dq = rng.normal(size=(20, 64)).astype(np.float32)
+    bq = {}
+    for where in ("cpu", dev):
+        t = DenseTable(64, device=where)
+        t.insert(dense)
+        bq[str(where)] = BinaryQuantizedIndex(
+            t, m=8, ef_construction=32, wave_size=512,
+            beam_expand=4).search(dq, 10, ef_search=80)
+    assert_same_topk(*bq["cpu"], *bq[str(dev)])
+
+
+def test_sparse_indexes_on_cuda_match_cpu(dev, monkeypatch):
+    """Sparse exact search on its three routes, and a CPU-built sparse
+    inner-product graph carried to the card, against the CPU."""
+    rng = np.random.default_rng(13)
+    dim, n = 512, 6000
+    rows = []
+    for _ in range(n + 20):
+        c = np.sort(rng.choice(dim, rng.integers(1, 17), replace=False))
+        rows.append(SparseVec(dim, c, rng.random(len(c)) + 0.1))
+    # queries apart from the rows: a query equal to a row scores L2 zero,
+    # which K1's 3xTF32 leaves within its bound of the squared distance,
+    # not within atol of its square root
+    rows, q = rows[:n], rows[n:] + [SparseVec(dim, [1, 5, 9], [1.0, 2.0, 3.0])]
+    cpu_t = SparseTable(dim, nnz_cap=16, device="cpu")
+    gpu_t = SparseTable(dim, nnz_cap=16, device=dev)
+    cpu_t.insert(rows)
+    gpu_t.insert(rows)
+    routes = {"densified": {},
+              "densified-tile": {"PGVECTOR_TPU_SPARSE_DENSIFY_GB": "0"},
+              "merge-join": {"PGVECTOR_TPU_SPARSE_DENSIFY_GB": "0",
+                             "PGVECTOR_TPU_SPARSE_TILE_BYTES": "1024"}}
+    for route, env in routes.items():
+        for k_, v in env.items():
+            monkeypatch.setenv(k_, v)
+        for metric in ("L2", "IP", "COSINE"):
+            d0, i0 = FlatIndex(cpu_t, Metric[metric]).search(q, 10)
+            flat = FlatIndex(gpu_t, Metric[metric])
+            d1, i1 = flat.search(q, 10)
+            assert flat.last_path.startswith(route), flat.last_path
+            assert_same_topk(d0, i0, d1, i1)
+    cpu_idx = HNSWIndex(cpu_t, Metric.IP, m=8, ef_construction=32,
+                        wave_size=256, beam_expand=4)
+    gpu_idx = hnsw_from_numpy(gpu_t, *_graph_state(cpu_idx))
+    h0, r0 = cpu_idx.search(q, 10, ef_search=40)
+    h1, r1 = gpu_idx.search(q, 10, ef_search=40)
+    assert_same_topk(h0, r0, h1, r1)
+    built = HNSWIndex(gpu_t, Metric.IP, m=8, ef_construction=32,
+                      wave_size=256, beam_expand=4)
+    np.testing.assert_array_equal(built.levels, cpu_idx.levels)

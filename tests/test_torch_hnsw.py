@@ -141,7 +141,7 @@ def test_select_connections_matches_reference(metric):
         "dense", JMetric[metric], (jnp.asarray(vals),), jnp.asarray(base),
         jnp.asarray(pool_d), jnp.asarray(pool_i), 16)
     s1, k1 = TK.select_connections(
-        Metric[metric], torch.from_numpy(vals), torch.from_numpy(pool_d),
+        "dense", Metric[metric], torch.from_numpy(vals), torch.from_numpy(pool_d),
         torch.from_numpy(pool_i), 16)
     np.testing.assert_array_equal(s1.numpy(), np.asarray(s0))
     np.testing.assert_array_equal(k1.numpy(), np.asarray(k0))
@@ -179,7 +179,7 @@ def test_backlink_merge_and_grouping_match_reference():
         "dense", JMetric.L2, jv, jnp.asarray(old), jnp.asarray(old_kept),
         jnp.asarray(new_src), jnp.asarray(base), 16)
     m1 = TK.merge_backlinks_wholesale(
-        Metric.L2, tv, torch.from_numpy(old), torch.from_numpy(old_kept),
+        "dense", Metric.L2, tv, torch.from_numpy(old), torch.from_numpy(old_kept),
         torch.from_numpy(new_src), torch.from_numpy(base), 16)
     np.testing.assert_array_equal(m1[0].numpy(), np.asarray(m0[0]))
     np.testing.assert_array_equal(m1[1].numpy(), np.asarray(m0[1]))
@@ -187,7 +187,8 @@ def test_backlink_merge_and_grouping_match_reference():
     elig = rng.random(len(base)) > 0.3
     c0 = JK.intra_wave_candidates("dense", JMetric.L2, jv, jnp.asarray(base),
                                   jnp.asarray(elig), 6)
-    c1 = TK.intra_wave_candidates(Metric.L2, tv, torch.from_numpy(base),
+    c1 = TK.intra_wave_candidates("dense", Metric.L2, tv,
+                                  torch.from_numpy(base),
                                   torch.from_numpy(elig), 6)
     np.testing.assert_array_equal(c1[1].numpy(), np.asarray(c0[1]))
     np.testing.assert_allclose(c1[0].numpy(), np.asarray(c0[0]),

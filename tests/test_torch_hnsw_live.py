@@ -143,7 +143,7 @@ def test_merge_backlinks_matches_reference():
     m0 = JK.merge_backlinks("dense", JMetric.L2, (jnp.asarray(vals),),
                             jnp.asarray(old), jnp.asarray(kept),
                             jnp.asarray(src), jnp.asarray(targets), lm)
-    m1 = TK.merge_backlinks(Metric.L2, torch.from_numpy(vals),
+    m1 = TK.merge_backlinks("dense", Metric.L2, torch.from_numpy(vals),
                             torch.from_numpy(old), torch.from_numpy(kept),
                             torch.from_numpy(src), torch.from_numpy(targets),
                             lm)

@@ -1,7 +1,8 @@
 """The port stands alone: with ``jax`` made unimportable, importing
 ``pgvector_tpu_torch`` and running 2,000-row HNSW and IVFFlat builds and
-searches on the CPU, with a checkpoint round trip, succeeds, and neither
-``jax`` nor ``pgvector_tpu`` is loaded."""
+searches on the CPU, a binary-quantized index, bit IVFFlat, a sparse HNSW
+index, with checkpoint round trips, succeeds, and neither ``jax`` nor
+``pgvector_tpu`` is loaded."""
 
 import os
 import subprocess
@@ -46,6 +47,28 @@ _SCRIPT = textwrap.dedent("""
             db[:5], 3, probes=10)
         assert (r2 == r).all() and np.allclose(d2, d), (r, r2)
         assert checkpoint.load_hnsw(t2, tmp + "/h").n_elems == 2000
+    # the bit and sparse kinds and the re-rank pipelines
+    bq = P.BinaryQuantizedIndex(table, m=8, ef_construction=32,
+                                wave_size=512, beam_expand=4)
+    d, r = bq.search(db[:5], 3)
+    assert (r[:, 0] == np.arange(5)).all(), r
+    bits = P.BitTable(8, device="cpu")
+    bits.insert(db > 0)
+    bivf = P.IVFFlatIndex(bits, P.Metric.HAMMING, lists=4, seed=1)
+    d, r = bivf.search(db[:5] > 0, 3, probes=4)
+    assert (d[:, 0] == 0).all(), d
+    sp = P.SparseTable(8, nnz_cap=8, device="cpu")
+    sp.insert([P.SparseVec.from_dense(v) for v in db[:300]])
+    sidx = P.HNSWIndex(sp, P.Metric.L2, m=8, ef_construction=32)
+    q = [P.SparseVec.from_dense(v) for v in db[:3]]
+    d, r = sidx.search(q, 3)
+    assert (r[:, 0] == np.arange(3)).all(), r
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_table(sp, tmp + "/s")
+        checkpoint.save_hnsw(sidx, tmp + "/sh")
+        s2 = checkpoint.load_table(tmp + "/s", device="cpu")
+        _, r2 = checkpoint.load_hnsw(s2, tmp + "/sh").search(q, 3)
+        assert (r2 == r).all(), (r, r2)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "pgvector_tpu")
                     and sys.modules[m] is not None)

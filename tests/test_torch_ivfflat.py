@@ -166,14 +166,17 @@ def test_unbuilt_index_and_bittables():
     port = IVFFlatIndex(DenseTable(4, device="cpu"), Metric.L2, build=False)
     with pytest.raises(DataException, match="has not been built"):
         port.search(np.zeros(4, np.float32), 1)
-    with pytest.raises(FeatureNotSupported, match="not ported yet"):
+    # not a bit table: the hamming opclass does not apply, as in the
+    # reference
+    with pytest.raises(FeatureNotSupported,
+                       match="operator <~> is not supported by ivfflat"):
         IVFFlatIndex(object(), Metric.HAMMING, build=False)
     arrays = {"centroids_f32": np.zeros((100, 4), np.float32),
               "list_lens": np.zeros(100, np.int64),
               "assignments": np.full(1024, -1, np.int64)}
     meta = {"metric": "L2", "lists": 100, "seed": 0, "is_bit": False}
     assert ivfflat_from_numpy(port.table, arrays, meta).list_lens.sum() == 0
-    with pytest.raises(FeatureNotSupported, match="not ported yet"):
+    with pytest.raises(DataException, match="is_bit=True cannot index"):
         ivfflat_from_numpy(port.table, arrays, dict(meta, is_bit=True))
     with pytest.raises(DataException, match="disagree"):
         ivfflat_from_numpy(port.table, dict(arrays, list_lens=np.ones(100)),
