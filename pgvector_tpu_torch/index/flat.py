@@ -181,9 +181,9 @@ class FlatIndex:
         valid = self._valid(fmask)
         if k <= fused_topk.MAX_K:
             self.last_path = "bit-kernel"
-            pop = (D.popcount_rows(data) if metric is Metric.JACCARD
-                   else None)
-            return bit_topk(metric, qw, data, k, valid.contiguous(), pop)
+            # no popcounts: K4 needs none of the table's (Jaccard counts
+            # |x| as it unpacks), the plain version counts them a tile
+            return bit_topk(metric, qw, data, k, valid.contiguous())
         self.last_path = "tiled"
 
         def score(tile_words):

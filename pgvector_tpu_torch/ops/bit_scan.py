@@ -68,9 +68,10 @@ def bit_topk(metric: Metric, qs: torch.Tensor, db: torch.Tensor, k: int,
              valid: torch.Tensor, pop: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 wrapper: ``qs`` (Q, W) and ``db`` (N, W) int32 words, ``valid``
-    (N,) bool (live and passing the filter), ``pop`` (N,) int32 row
-    popcounts (Jaccard only), 1 <= k <= 64.  Returns ((Q, k) f32
-    distances, (Q, k) int32 ids) sorted by (distance, id)."""
+    (N,) bool (live and passing the filter), 1 <= k <= 64.  Returns ((Q,
+    k) f32 distances, (Q, k) int32 ids) sorted by (distance, id).
+    ``pop`` (N,) int32 row popcounts is optional: the plain version uses
+    it for Jaccard where given, and the kernel counts |x| itself."""
     jac = _check_metric(metric)
     if not qs.is_cuda:
         return bit_topk_plain(metric, qs, db, k, valid, pop)
@@ -82,9 +83,7 @@ def bit_topk(metric: Metric, qs: torch.Tensor, db: torch.Tensor, k: int,
     if db.shape[1] != w or valid.shape[0] != n:
         raise ValueError(f"shape mismatch: qs {tuple(qs.shape)}, "
                          f"db {tuple(db.shape)}, valid {tuple(valid.shape)}")
-    if jac:
-        if pop is None:
-            raise ValueError("Jaccard needs the rows' popcounts")
+    if pop is not None:
         _cuda.check_tensor(pop, "pop", torch.int32, 1)
         if pop.shape[0] != n:
             raise ValueError(f"pop has {pop.shape[0]} rows, db {n}")
@@ -100,6 +99,8 @@ def bit_topk(metric: Metric, qs: torch.Tensor, db: torch.Tensor, k: int,
         return out_d, out_i
     if n == 0:
         return out_d.fill_(torch.inf), out_i.fill_(-1)
+    if valid.data_ptr() % 16:  # the kernel copies it in 16-byte pieces
+        valid = valid.clone()
     splits, per = _splits(nq, n, torch.cuda.get_device_properties(
         qs.device).multi_processor_count)
     part_d = torch.empty((splits, nq, k), dtype=torch.float32,
@@ -109,7 +110,7 @@ def bit_topk(metric: Metric, qs: torch.Tensor, db: torch.Tensor, k: int,
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pgvt_bit_topk(
-            qs.data_ptr(), db.data_ptr(), pop.data_ptr() if jac else None,
+            qs.data_ptr(), db.data_ptr(), None,
             valid.data_ptr(), nq, n, w, k, int(jac), splits, per,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), stream)

@@ -158,28 +158,97 @@ fused_topk.launches = 0
 _U = 2.0 ** -24
 
 
+def _row_bound(qs, db, ids, chunk, fn):
+    """The largest ``fn(query slice, row ids, S, rows)`` over the id
+    tensors ``ids`` at each (Q, k) position, 0 where the id is -1; S =
+    sum_i |q_i| |x_i|."""
+    qa = qs.abs().float()
+    out = torch.zeros(ids[0].shape, dtype=torch.float32, device=qs.device)
+    for t in ids:
+        t = (t if torch.is_tensor(t) else torch.tensor(t)).to(qs.device)
+        t = t.long()
+        for s in range(0, qs.shape[0], chunk):
+            ti = t[s: s + chunk]
+            safe = ti.clamp(min=0)
+            rows = db[safe].float()
+            sabs = torch.einsum("qd,qkd->qk", qa[s: s + chunk], rows.abs())
+            b = fn(slice(s, s + chunk), safe, sabs, rows)
+            out[s: s + chunk] = torch.maximum(
+                out[s: s + chunk], torch.where(ti >= 0, b, 0.0))
+    return out
+
+
 def k1_error_bound(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
                    *ids: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
     """(Q, k) f32 bound on |K1 − fused_topk_plain| for the scores of rows
     ``ids`` (one or more (Q, k) id tensors, e.g. both results; the largest
     bound of the rows at a position is taken), derived above.  Positions
     whose id is -1 get 0."""
+    c = 60 + -(-qs.shape[1] // 32) + qs.shape[1]
+    return _row_bound(qs, db, ids, chunk, lambda qi, safe, sabs, rows:
+                      2.0 * _U * (c * sabs + dbsq[safe] + 2.0 * sabs))
+
+
+# The bound carried to the L2 distances FlatIndex returns, sqrt(max(|q|^2 +
+# s, 0)) with s the score above: K1's on the card, an f32 evaluation on
+# the CPU (the port's plain version, or the reference package's).
+#
+# One f32 evaluation of |q|^2 + |x|^2 - 2 q.x lies within
+#
+#     e = u ((D + 2)(|q|^2 + |x|^2) + (2D + 4) S)
+#
+# of the exact value: the two norms are sums of D squares (D u each), the
+# product -2 q.x sums D products (2 D u S), and two adds round once each
+# (u (|q|^2 + |x|^2 + 2S) together).  K1's score lies within
+# k1_error_bound of the plain version's on the same inputs, and the card
+# computes its own norms as that evaluation would.  So the squared
+# distances a (reference) and b (card) differ by at most
+#
+#     E = k1_error_bound + 2e,
+#
+# and two plain f32 evaluations by at most 2e < E, so one E holds either
+# pair.  The clamp at 0 moves neither value further apart.  For a, b >= 0,
+# |sqrt(a) - sqrt(b)| = |a - b| / (sqrt(a) + sqrt(b)), which is at most
+# sqrt(|a - b|) and at most |a - b| / sqrt(a): the roots differ by at most
+# min(sqrt(E), E / r), r = sqrt(a) the reference's root.  Each side's
+# square root rounds once more, and r is itself a rounded root; 4u (r +
+# sqrt(E)) covers the three.  Near zero (a query equal to a row) the
+# root's error is sqrt(E), far above E, and no fixed atol holds it: at 128
+# dims and |x|^2 near 400 sqrt(E) is 0.18.
+
+
+def k1_l2_error_bound(qs: torch.Tensor, db: torch.Tensor,
+                      *ids: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """(Q, k) f32 bound E on the difference of two squared L2 distances of
+    queries ``qs`` to rows ``ids`` of ``db``: K1's on the card through
+    :func:`exact_topk` against an f32 evaluation on the CPU (derived
+    above).  Positions whose id is -1 get 0."""
     d = qs.shape[1]
     c = 60 + -(-d // 32) + d
-    qa = qs.abs().float()
-    out = torch.zeros(ids[0].shape, dtype=torch.float32, device=qs.device)
-    for t in ids:
-        t = t.to(qs.device).long()
-        for s in range(0, qs.shape[0], chunk):
-            ti = t[s: s + chunk]
-            safe = ti.clamp(min=0)
-            sabs = torch.einsum("qd,qkd->qk", qa[s: s + chunk],
-                                db[safe].abs().float())
-            nrm = torch.where(ti >= 0, dbsq[safe], 0.0)
-            b = 2.0 * _U * (c * sabs + nrm + 2.0 * sabs)
-            out[s: s + chunk] = torch.maximum(
-                out[s: s + chunk], torch.where(ti >= 0, b, 0.0))
-    return out
+    qsq = torch.sum(qs.float() * qs.float(), dim=1)
+
+    def bound(qi, safe, sabs, rows):
+        xsq = torch.sum(rows * rows, dim=-1)
+        norms = qsq[qi, None] + xsq
+        k1 = c * sabs + xsq + 2.0 * sabs
+        return 2.0 * _U * (k1 + (d + 2) * norms + (2 * d + 4) * sabs)
+
+    return _row_bound(qs, db, ids, chunk, bound)
+
+
+def l2_root_bound(sq_bound, d_ref) -> torch.Tensor:
+    """(Q, k) bound on |sqrt(b) − d_ref| for squared distances b within
+    ``sq_bound`` of the reference's, whose roots are ``d_ref`` (derived
+    above); 0 where ``d_ref`` is +inf (no row)."""
+    e = torch.as_tensor(sq_bound, dtype=torch.float32)
+    r = (d_ref if torch.is_tensor(d_ref) else torch.tensor(d_ref))
+    r = r.to(device=e.device, dtype=torch.float32)
+    fin = torch.isfinite(r)
+    r0 = torch.where(fin, r, 0.0)
+    root = torch.sqrt(e)
+    far = torch.where(r0 > 0, e / torch.where(r0 > 0, r0, 1.0), torch.inf)
+    out = torch.minimum(root, far) + 4.0 * _U * (r0 + root)
+    return torch.where(fin, out, 0.0)
 
 
 def exact_topk(

@@ -62,13 +62,15 @@ VARIANTS = {
 }
 
 
-def variant_source(cuts, source: str) -> str:
-    """``source`` with ``cuts`` applied; each anchor must occur once."""
+def variant_source(cuts, source: str, table=None) -> str:
+    """``source`` with ``cuts`` (names in ``table``, K1's by default)
+    applied; each anchor must occur once."""
+    table = CUTS if table is None else table
     for cut in cuts:
-        for anchor, repl in CUTS[cut]:
+        for anchor, repl in table[cut]:
             if source.count(anchor) != 1:
                 raise ValueError(f"cut {cut!r}: anchor not found once in "
-                                 f"{SOURCE.name}")
+                                 "the source")
             source = source.replace(anchor, repl)
     return source
 
@@ -89,27 +91,30 @@ def clustered(n: int, nq: int, dim: int = 128, seed: int = 0):
     return db, qs.astype(np.float32)
 
 
-def _build(names):
-    """Compile every variant at once; name -> loaded library."""
+def build_variants(names, source=SOURCE, variants=None, cuts=None,
+                   entry="pgvt_fused_topk", tag="k1"):
+    """Compile every variant of ``source`` at once (K1's by default);
+    name -> loaded library with ``entry`` bound."""
+    variants = VARIANTS if variants is None else variants
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
+    text = source.read_text()
     jobs = {}
     for name in names:
-        src = _cuda.BUILD_DIR / f"k1_{name}.cu"
-        src.write_text(variant_source(VARIANTS[name], text))
-        so = _cuda.BUILD_DIR / f"k1_{name}.so"
+        src = _cuda.BUILD_DIR / f"{tag}_{name}.cu"
+        src.write_text(variant_source(variants[name], text, cuts))
+        so = _cuda.BUILD_DIR / f"{tag}_{name}.so"
         jobs[name] = (so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.SRC_DIR),
+             "-shared", "-o", str(so), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        lib.pgvt_fused_topk.argtypes = _cuda._SIGNATURES["pgvt_fused_topk"]
-        lib.pgvt_fused_topk.restype = ctypes.c_int
+        getattr(lib, entry).argtypes = _cuda._SIGNATURES[entry]
+        getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -134,7 +139,7 @@ def _launcher(lib, qs, db, dbsq, k):
     return run
 
 
-def _ms(fn, reps=5):
+def timed(fn, reps=5):
     fn()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -145,6 +150,14 @@ def _ms(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -153,11 +166,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_breakdown needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-    libs = _build(VARIANTS)
+    smi = smi_line()
+    libs = build_variants(VARIANTS)
     db, qs = (torch.as_tensor(a, device="cuda")
               for a in clustered(args.n, args.queries))
     dbsq = (db * db).sum(1)
@@ -173,7 +183,7 @@ def main(argv=None):
     order = list(runs) + list(runs)[::-1]
     ms = {name: 0.0 for name in runs}
     for name in order:
-        ms[name] += _ms(runs[name]) / 2
+        ms[name] += timed(runs[name]) / 2
     print(json.dumps({
         "tool": "k1_breakdown", "nvidia_smi": smi, "n": args.n,
         "queries": args.queries, "k": args.k,

@@ -147,6 +147,58 @@ def test_bit_topk_plain_equals_reference(metric, k):
     assert torch.equal(d2, d1) and torch.equal(i2, i1)
 
 
+def _word_bits(words):
+    """(…, W) uint32 words → (…, W * 32) int32 bits, bit p of word c at
+    32c + p (the order inside a word does not matter to a dot product)."""
+    w = np.asarray(words, dtype=np.uint32)
+    bits = (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(w.shape[:-1] + (-1,)).astype(np.int32)
+
+
+@pytest.mark.parametrize("bits", [20, 128, 3200])
+@pytest.mark.parametrize("metric", BIT_METRICS)
+def test_k4_tensor_core_arithmetic_equals_reference(metric, bits):
+    """The arithmetic of K4's int8 tensor-core path, bitwise against the
+    reference's bit_scores: ab = unpack(q) · unpack(x) as an int32
+    product, Hamming = |q| + |x| - 2 ab and Jaccard from the same ab; then
+    the kernel's own operand bytes (csrc/bit_scan.cu: a row fragment holds
+    each even bit as 0/1 and each odd bit as 0/2, the query's bytes weigh
+    2 and 1 the other way round, signed for Hamming), whose product is 2
+    (2 ab - |x|) (Hamming) or 2 ab (Jaccard).  Tail bits past the width
+    are zero, an empty query and an empty row are included."""
+    qw = TD.pack_bits(_bits(40 + bits, 33, bits)).numpy().view(np.uint32)
+    xw = TD.pack_bits(_bits(41 + bits, 257, bits, 0.3)).numpy() \
+        .view(np.uint32).copy()
+    qw[0] = 0
+    xw[3] = 0
+    want = np.asarray(JD.bit_scores(JMetric[metric], jnp.asarray(qw),
+                                    jnp.asarray(xw)))
+    q, x = _word_bits(qw), _word_bits(xw)
+    ab = q @ x.T  # int32
+    aa, bb = q.sum(1)[:, None], x.sum(1)[None, :]
+
+    def dist(ab2):
+        if metric == "HAMMING":
+            return (aa + bb - 2 * ab2).astype(np.float32)
+        return TD.jaccard_from_counts(torch.from_numpy(ab2),
+                                      torch.from_numpy(aa),
+                                      torch.from_numpy(bb)).numpy()
+
+    np.testing.assert_array_equal(dist(ab), want)
+    even = (np.arange(q.shape[1]) % 2 == 0)
+    b_bytes = np.where(even, x, 2 * x).astype(np.int8)
+    a_weight = np.where(even, 2, 1)
+    a_bytes = (a_weight * (2 * q - 1) if metric == "HAMMING"
+               else a_weight * q).astype(np.int8)
+    acc = a_bytes.astype(np.int32) @ b_bytes.astype(np.int32).T
+    if metric == "HAMMING":
+        np.testing.assert_array_equal(acc, 2 * (2 * ab - bb))
+        np.testing.assert_array_equal(
+            (aa - acc // 2).astype(np.float32), want)
+    else:
+        np.testing.assert_array_equal(dist(acc // 2), want)
+
+
 @pytest.mark.parametrize("metric", BIT_METRICS)
 def test_bit_point_scores_plain_equals_reference(metric):
     """K5's plain version against the reference's bit scorer."""

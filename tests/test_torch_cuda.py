@@ -34,7 +34,8 @@ from pgvector_tpu_torch.io import checkpoint  # noqa: E402
 from pgvector_tpu_torch.io.convert import (  # noqa: E402
     hnsw_from_numpy, ivfflat_from_numpy)
 from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
-    fused_topk, fused_topk_plain, k1_error_bound)
+    fused_topk, fused_topk_plain, k1_error_bound, k1_l2_error_bound,
+    l2_root_bound)
 from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
     MAX_WIDTH, hop_tail, hop_tail_plain)
 from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
@@ -452,29 +453,39 @@ def _words(rng, n, bits, dev, p=0.5):
     return TD.pack_bits(rng.random((n, bits)) < p).to(dev)
 
 
-@pytest.mark.parametrize("bits", [20, 128, 3200])
+@pytest.mark.parametrize("bits", [20, 100, 128, 3200, 3210, 64000])
 @pytest.mark.parametrize("k", [1, 10, 64])
 @pytest.mark.parametrize("metric", ["HAMMING", "JACCARD"])
 def test_bit_topk_kernel_equals_plain(dev, metric, k, bits):
     """K4 against its plain version: the same ids and bitwise-equal
     distances (integer popcounts; Jaccard's division rounds the same),
-    ties (everywhere at 20 and 128 bits) to the lower row; dead rows,
-    empty rows, a ragged query tile and several row splits."""
+    ties (everywhere at 20 and 128 bits) to the lower row.  Widths of 1,
+    4, 100 and 101 words (16-word chunks: ragged ones, 16-byte and 4-byte
+    loads) up to 64,000 bits (BITVEC_MAX_DIM); a ragged query tile (131)
+    and a ragged last row tile; all-zero rows and queries (Jaccard's empty
+    ∩ empty → 1); dead rows; several row splits; and a filter that leaves
+    fewer than k rows (none at k = 1)."""
     rng = np.random.default_rng(bits + k)
-    n, nq = 30011, 131
+    n, nq = (30011, 131) if bits <= 3210 else (2311, 131)
     db = _words(rng, n, bits, dev)
     db[100:200] = db[:100]
     db[7] = 0
+    db[n - 1] = 0
     qs = _words(rng, nq, bits, dev)
     qs[0] = 0
+    qs[nq - 1] = db[5]
     valid = torch.tensor(rng.random(n) > 0.1, device=dev)
-    pop = TD.popcount_rows(db)
-    launches = bit_topk.launches
-    d1, i1 = bit_topk(Metric[metric], qs, db, k, valid, pop)
-    torch.cuda.synchronize()
-    assert bit_topk.launches == launches + 1
-    d0, i0 = bit_topk_plain(Metric[metric], qs, db, k, valid, pop)
-    assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    valid[7] = valid[n - 1] = True
+    few = torch.zeros(n, dtype=torch.bool, device=dev)
+    few[torch.tensor(rng.choice(n, k // 2, replace=False), device=dev)] = True
+    for mask in (valid, few):
+        launches = bit_topk.launches
+        d1, i1 = bit_topk(Metric[metric], qs, db, k, mask)
+        torch.cuda.synchronize()
+        assert bit_topk.launches == launches + 1
+        d0, i0 = bit_topk_plain(Metric[metric], qs, db, k, mask)
+        assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    assert (i1 < 0).sum() == nq * (k - k // 2)  # the filter's short lists
 
 
 @pytest.mark.parametrize("bits", [20, 128, 224, 3200])
@@ -502,8 +513,9 @@ def test_bit_kernels_reject(dev):
     ok = torch.ones(10, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
         bit_topk(Metric.HAMMING, qs, db, 65, ok)
-    with pytest.raises(ValueError):
-        bit_topk(Metric.JACCARD, qs, db, 5, ok)  # no popcounts
+    with pytest.raises(ValueError):  # popcounts of another table
+        bit_topk(Metric.JACCARD, qs, db, 5, ok,
+                 torch.zeros(9, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         bit_point_scores(Metric.L2, qs, db, torch.zeros((4, 3),
                                                         dtype=torch.int32,
@@ -582,6 +594,65 @@ def test_bit_indexes_on_cuda_match_cpu(dev):
     assert_same_topk(*bq["cpu"], *bq[str(dev)])
 
 
+def _densify(vecs, dim):
+    out = np.zeros((len(vecs), dim), np.float32)
+    for r, sv in enumerate(vecs):
+        out[r, sv.indices] = sv.values
+    return out
+
+
+def _f32_l2_bound(qs, db, width, *ids):
+    """2e of ops/fused_topk's derivation with sums over ``width`` terms:
+    two f32 evaluations of |q|² + |x|² - 2 q·x, one on each device."""
+    u = 2.0 ** -24
+    qsq = (qs * qs).sum(1, keepdim=True)
+    out = torch.zeros(ids[0].shape)
+    for t in ids:
+        t = torch.as_tensor(np.asarray(t)).long()
+        rows = db[t.clamp(min=0)]
+        s_abs = torch.einsum("qd,qkd->qk", qs.abs(), rows.abs())
+        e = 2 * u * ((width + 2) * (qsq + (rows * rows).sum(-1))
+                     + (2 * width + 4) * s_abs)
+        out = torch.maximum(out, torch.where(t >= 0, e, 0.0))
+    return out
+
+
+@pytest.mark.parametrize("dim", [64, 128])
+def test_flat_self_match_on_cuda_matches_cpu(dev, dim):
+    """FlatIndex on the K1 route with queries that are stored rows (the
+    near-duplicate lookup), the card against the CPU within the bounds
+    derived from K1's: L2 roots within l2_root_bound over
+    k1_l2_error_bound, inner products within k1_error_bound / 2.  Ten rows
+    are stored twice, so some self-matches tie at zero."""
+    rng = np.random.default_rng(31 + dim)
+    n = 6000
+    db = (rng.normal(size=(n, dim)) * 2).astype(np.float32)
+    db[10:20] = db[:10]
+    pick = np.concatenate([np.arange(0, 20, 2),
+                           rng.choice(np.arange(20, n), 30, replace=False)])
+    q = db[pick]
+    cpu_t, gpu_t = DenseTable(dim, device="cpu"), DenseTable(dim, device=dev)
+    cpu_t.insert(db)
+    gpu_t.insert(db)
+    qt, dbt = torch.as_tensor(q), torch.as_tensor(db)
+    for metric in ("L2", "IP"):
+        d0, i0 = FlatIndex(cpu_t, Metric[metric]).search(q, 10)
+        flat = FlatIndex(gpu_t, Metric[metric])
+        launches = fused_topk.launches
+        d1, i1 = flat.search(q, 10)
+        assert flat.last_path == "fused"
+        assert fused_topk.launches == launches + 1
+        if metric == "L2":
+            atol = l2_root_bound(k1_l2_error_bound(qt, dbt, i0, i1), d0)
+            # each query's own row (or the row stored twice) comes first
+            first = i1[:, 0]
+            assert (np.where(pick < 20, first % 10, first)
+                    == np.where(pick < 20, pick % 10, pick)).all()
+        else:
+            atol = k1_error_bound(qt, dbt, torch.zeros(n), i0, i1) / 2
+        assert_same_topk(d0, i0, d1, i1, atol=atol.numpy(), rtol=0.0)
+
+
 def test_sparse_indexes_on_cuda_match_cpu(dev, monkeypatch):
     """Sparse exact search on its three routes, and a CPU-built sparse
     inner-product graph carried to the card, against the CPU."""
@@ -591,10 +662,11 @@ def test_sparse_indexes_on_cuda_match_cpu(dev, monkeypatch):
     for _ in range(n + 20):
         c = np.sort(rng.choice(dim, rng.integers(1, 17), replace=False))
         rows.append(SparseVec(dim, c, rng.random(len(c)) + 0.1))
-    # queries apart from the rows: a query equal to a row scores L2 zero,
-    # which K1's 3xTF32 leaves within its bound of the squared distance,
-    # not within atol of its square root
-    rows, q = rows[:n], rows[n:] + [SparseVec(dim, [1, 5, 9], [1.0, 2.0, 3.0])]
+    # queries apart from the rows, and ten equal to stored rows (L2 near
+    # zero: held by the root bound below)
+    rows, q = rows[:n], (rows[n:] + rows[:10]
+                         + [SparseVec(dim, [1, 5, 9], [1.0, 2.0, 3.0])])
+    dense_q, dense_x = (torch.tensor(_densify(v, dim)) for v in (q, rows))
     cpu_t = SparseTable(dim, nnz_cap=16, device="cpu")
     gpu_t = SparseTable(dim, nnz_cap=16, device=dev)
     cpu_t.insert(rows)
@@ -611,7 +683,16 @@ def test_sparse_indexes_on_cuda_match_cpu(dev, monkeypatch):
             flat = FlatIndex(gpu_t, Metric[metric])
             d1, i1 = flat.search(q, 10)
             assert flat.last_path.startswith(route), flat.last_path
-            assert_same_topk(d0, i0, d1, i1)
+            if metric != "L2":
+                assert_same_topk(d0, i0, d1, i1)
+                continue
+            # K1 on the densified routes; the merge join evaluates
+            # |q|² + |x|² - 2 q·x in f32 over the 16 stored entries
+            e = (_f32_l2_bound(dense_q, dense_x, 16, i0, i1)
+                 if route == "merge-join"
+                 else k1_l2_error_bound(dense_q, dense_x, i0, i1))
+            assert_same_topk(d0, i0, d1, i1,
+                             atol=l2_root_bound(e, d0).numpy(), rtol=0.0)
     cpu_idx = HNSWIndex(cpu_t, Metric.IP, m=8, ef_construction=32,
                         wave_size=256, beam_expand=4)
     gpu_idx = hnsw_from_numpy(gpu_t, *_graph_state(cpu_idx))

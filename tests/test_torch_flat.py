@@ -14,6 +14,8 @@ from pgvector_tpu.index.flat import FlatIndex as JFlat  # noqa: E402
 from pgvector_tpu.ops.metric import Metric as JMetric  # noqa: E402
 from pgvector_tpu.store.table import DenseTable as JTable  # noqa: E402
 from pgvector_tpu_torch import DenseTable, FlatIndex, Metric  # noqa: E402
+from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
+    k1_l2_error_bound, l2_root_bound)
 from torch_parity import assert_same_topk  # noqa: E402
 
 
@@ -36,6 +38,45 @@ def test_flat_search_matches_reference(metric, path, monkeypatch):
     assert flat.last_path == path
     assert_same_topk(d0, i0, d1, i1)
     assert not np.isin(i1, dead).any()
+
+
+@pytest.mark.parametrize("dim", [32, 128])
+def test_l2_root_bound_at_a_self_match(dim, monkeypatch):
+    """Queries equal to stored rows: the reference's L2 distances against
+    the port's on the K1 route (its plain version here) within the root
+    bound derived from K1's (ops/fused_topk.l2_root_bound over
+    k1_l2_error_bound).  Then the port's squared distances moved by the
+    squared bound E pass, and moved by 4E fail, at the self-match (root
+    sqrt(E)) and at a far row (root E / r): the root tolerance is the
+    derivation's, neither looser nor tighter."""
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "xla")
+    rng = np.random.default_rng(21 + dim)
+    db = (rng.normal(size=(5000, dim)) * 2).astype(np.float32)
+    pick = np.array([3, 700, 4999])
+    q = db[pick]
+    jt, tt = JTable(dim), DenseTable(dim, device="cpu")
+    jt.insert(db)
+    tt.insert(db)
+    d0, i0 = JFlat(jt, JMetric.L2).search(q, 10)
+    flat = FlatIndex(tt, Metric.L2)
+    d1, i1 = flat.search(q, 10)
+    assert flat.last_path == "fused"
+    np.testing.assert_array_equal(i0[:, 0], pick)
+    np.testing.assert_array_equal(i1[:, 0], pick)
+    e = k1_l2_error_bound(torch.as_tensor(q), torch.as_tensor(db), i0, i1)
+    atol = l2_root_bound(e, d0).numpy()
+    assert_same_topk(d0, i0, d1, i1, atol=atol, rtol=0.0)
+    e = e.numpy().astype(np.float64)
+    r = d0.astype(np.float64)
+    assert (atol[:, 0] > np.sqrt(e[:, 0])).all()  # sqrt(E) at r = 0
+    # the reference's squared distances moved by E: within the bound
+    at_bound = np.sqrt(r * r + e).astype(np.float32)
+    assert_same_topk(d0, i0, at_bound, i0, atol=atol, rtol=0.0)
+    for pos in (0, 9):  # the self-match, the tenth row
+        over = d0.copy()
+        over[:, pos] = np.sqrt(r[:, pos] ** 2 + 4 * e[:, pos])
+        with pytest.raises(AssertionError, match="beyond their bound"):
+            assert_same_topk(d0, i0, over, i0, atol=atol, rtol=0.0)
 
 
 def test_table_without_device_needs_a_card(monkeypatch):

@@ -265,3 +265,17 @@ def test_k1_breakdown_cuts_apply_to_the_kernel():
     assert len(set(variants.values())) == len(variants)
     for got, want in zip(K.clustered(3000, 40), make_data(3000, 40)):
         np.testing.assert_array_equal(got, want)
+
+
+def test_k4_breakdown_cuts_apply_to_the_kernel():
+    """The K4 breakdown tool's cuts still find their anchors in
+    csrc/bit_scan.cu, and each variant is a different source."""
+    from pgvector_tpu_torch.tools import k4_breakdown as K
+    from pgvector_tpu_torch.tools.k1_breakdown import variant_source
+
+    src = K.SOURCE.read_text()
+    variants = {v: variant_source(c, src, K.CUTS)
+                for v, c in K.VARIANTS.items()}
+    assert variants["whole"] == src
+    assert len(set(variants.values())) == len(variants)
+    assert "mma_s8(acc" not in variants["loads_only"]
