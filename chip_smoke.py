@@ -33,7 +33,13 @@ Jaccard graph at 200k, BQ on
 sign-informative 512-d data (bench.py's lanes), sparse exact inner
 product at 1M × 4,096 against the merge join, a sparse inner-product
 graph at 24,576 rows, and that phase's device programs without a hand
-kernel.
+kernel.  Last, halfvec at GIST-1M's width (phase 9, bench.py's GIST
+lane): 200,000 × 960 rows of make_data (seed 7) in a bf16 table, the
+exact top-10 through the grouped engine (200 queries against the tiled
+scan), an HNSW build, searches at ef 40 and 100 over the bf16 slab that
+``auto`` picks and over the int8 slab, K2's int8 slab against its plain
+version on hop states of that graph (equal bit for bit for L2 and inner
+product), and the ``auto`` pick for 1M × 960 on this card (int8).
 
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
@@ -1206,6 +1212,268 @@ def bit_sparse_phase(db, qs, k, smi, n, dev):
     ]
 
 
+def _f32_l2_bound(qs, rows, width):
+    """Twice the f32 error bound of |q|² + |x|² - 2 q·x over ``width``
+    terms (ops/fused_topk's derivation): two routes each evaluate it in
+    f32 with their own summation order.  qs (Q, D), rows (Q, k, D)."""
+    import torch
+
+    u = 2.0 ** -24
+    qsq = (qs * qs).sum(1, keepdim=True)
+    s_abs = torch.einsum("qd,qkd->qk", qs.abs(), rows.abs())
+    return 2 * u * ((width + 2) * (qsq + (rows * rows).sum(-1))
+                    + (2 * width + 4) * s_abs)
+
+
+def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
+    """Phase 9: halfvec at GIST-1M's width (bench.py:643-700's lane).
+    bench.make_data(n, nq, dim=960, seed=7) in a bf16 DenseTable; with
+    every count at 0, the exact L2 top-10 through FlatIndex (the grouped
+    engine; 200 queries against the tiled route), the HNSW build (m 16,
+    ef_construction 64, wave 1024, build beam 4, dedup off) and, on that
+    graph with query beam 8, searches at ef 40 and 100 over the bf16 slab
+    ``auto`` picks at 200k and then over the int8 slab
+    (PGVECTOR_TPU_PACKED_SCAN=int8, restored after); then K2's int8 slab
+    against its plain version on hop states captured from the int8
+    searches, timed beside its bound and the bf16 slab's kernel at the
+    same hop; last, what ``auto`` picks for 1M × 960 on this card.
+    Returns the K2-int8 row of the kernel line."""
+    import numpy as np
+    import torch
+
+    from bench import make_data
+    from pgvector_tpu_torch import DenseTable, FlatIndex, HNSWIndex, Metric
+    from pgvector_tpu_torch.index import hnsw_kernels
+    from pgvector_tpu_torch.index.hnsw import auto_packed_dtype
+    from pgvector_tpu_torch.ops import distance as D
+    from pgvector_tpu_torch.ops.fused_topk import fused_topk, l2_root_bound
+    from pgvector_tpu_torch.ops.packed_hop import (
+        int8_l1_bound, packed_hop, packed_hop_plain)
+    from pgvector_tpu_torch.utils.telemetry import timers
+    from torch_parity import assert_same_pool, assert_same_topk
+
+    dim, env = 960, "PGVECTOR_TPU_PACKED_SCAN"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    gdb, gqs = make_data(n, nq, dim=dim, seed=7)
+    table = DenseTable(dim, dtype=torch.bfloat16, capacity=n, device=dev)
+    table.insert(gdb)
+    data_s = time.perf_counter() - t0
+
+    # the counts go to 0 here: what follows is this phase's main path
+    fused_topk.launches = packed_hop.launches = 0
+    packed_hop.launches_by_slab = dict.fromkeys(packed_hop.launches_by_slab, 0)
+    flat = FlatIndex(table, Metric.L2)
+    t0 = time.perf_counter()
+    gt_d, gt = flat.search(gqs, k)
+    gt_s = time.perf_counter() - t0
+    check(flat.last_path == "grouped",
+          f"the bf16 ground truth took the grouped engine ({flat.last_path})")
+    check(gt.shape == (nq, k) and np.isfinite(gt_d).all()
+          and (gt >= 0).all(), "a finite, full ground truth")
+    # 200 queries against the tiled route, within twice the f32 error of
+    # an expanded L2 at this width, carried through the square root
+    os.environ["PGVECTOR_TPU_EXACT"] = "xla"
+    try:
+        tiled = FlatIndex(table, Metric.L2)
+        td, ti = tiled.search(gqs[:200], k)
+    finally:
+        del os.environ["PGVECTOR_TPU_EXACT"]
+    check(tiled.last_path == "tiled", "the check took the tiled scan")
+    qd = torch.as_tensor(gqs[:200], device=dev)
+    e = torch.zeros((200, k), device=dev)
+    for ids in (ti, gt[:200]):
+        rows = table.data[torch.as_tensor(ids, device=dev).long()].float()
+        e = torch.maximum(e, _f32_l2_bound(qd, rows, dim))
+    atol = l2_root_bound(e, torch.as_tensor(td, device=dev)).cpu().numpy()
+    assert_same_topk(td, ti, gt_d[:200], gt[:200], atol=atol, rtol=0.0)
+    gt_check = {"queries": 200, "ids_equal_frac": float((ti == gt[:200]).mean()),
+                "max_abs_err": float(np.abs(td - gt_d[:200]).max()),
+                "max_err_over_bound": float(
+                    (np.abs(td - gt_d[:200]) / atol).max())}
+
+    timers.reset()
+    timers.enabled = True
+    t0 = time.perf_counter()
+    idx = HNSWIndex(table, Metric.L2, m=16, ef_construction=64,
+                    wave_size=1024, dedup=False, beam_expand=4)
+    build_s = time.perf_counter() - t0
+    timers.enabled = False
+    build_phases = {key: v["total_s"] for key, v in timers.report().items()}
+    idx.beam_expand = 8  # query-side beam, as bench.py:518
+    check(os.environ.get(env) is None, f"{env} is unset for auto")
+    auto = idx._packed_plan()
+    check(auto == torch.bfloat16, f"auto picks bf16 at {n} x {dim}, not {auto}")
+
+    floors = {40: 0.94, 100: 0.985}  # the reference: 0.9759 and 0.9981
+    states, calls = {}, []
+
+    def record(*a):
+        if len(calls) in (0, 4, 12):
+            states[len(calls)] = [
+                t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
+                else t for t in a]
+        calls.append(1)
+        return packed_hop(*a)
+
+    tiers = {}
+    try:
+        for tier in ("bf16", "int8"):
+            if tier == "int8":
+                os.environ[env] = "int8"
+            hops, sweep = 0, []
+            for ef in (40, 100):
+                idx.search(gqs, k, ef_search=ef)  # warm-up: builds the slab
+                torch.cuda.synchronize()
+                hops += idx._last_scan_steps
+                t0 = time.perf_counter()
+                dist, r = idx.search(gqs, k, ef_search=ef)
+                dt = time.perf_counter() - t0
+                hops += idx._last_scan_steps
+                check(r.shape == (nq, k) and np.isfinite(dist).all(),
+                      f"finite {tier} results of shape {(nq, k)}")
+                rec = sum(len(set(a.tolist()) & set(b.tolist()))
+                          for a, b in zip(r, gt)) / (nq * k)
+                check(rec >= floors[ef], f"{tier} recall@10 {rec} >= "
+                      f"{floors[ef]} at ef={ef}")
+                sweep.append({"ef": ef, "recall_at_10": rec, "qps": nq / dt,
+                              "layer0_hops": idx._last_scan_steps})
+            slab = idx._nbr_vals
+            check(slab.dtype == getattr(torch, {"bf16": "bfloat16",
+                                               "int8": "int8"}[tier]),
+                  f"the {tier} slab scanned, not {slab.dtype}")
+            tiers[tier] = {"sweep": sweep, "layer0_hops": hops,
+                           "slab_gb": slab.numel() * slab.element_size() / 1e9,
+                           "launches": packed_hop.launches_by_slab[tier]}
+            check(packed_hop.launches_by_slab[tier] == hops,
+                  f"every {tier} layer-0 hop went through K2: "
+                  f"{packed_hop.launches_by_slab[tier]} launches for {hops}")
+        for ef in (40, 100):
+            b16, i8 = (next(s["recall_at_10"] for s in tiers[t]["sweep"]
+                            if s["ef"] == ef) for t in ("bf16", "int8"))
+            check(i8 >= b16 - 0.01, f"int8 recall {i8} within 0.01 of bf16's "
+                  f"{b16} at ef={ef}")
+        launches = {"fused_topk": fused_topk.launches,
+                    "packed_hop": packed_hop.launches,
+                    "packed_hop_by_slab": dict(packed_hop.launches_by_slab)}
+        check(launches["packed_hop_by_slab"]["f32"] == 0, "no f32 slab")
+        # hop states of one int8 search at ef 100 (hops 0, 4 and 12), and
+        # the bf16 slab's kernel at hop 4 of the same search
+        hnsw_kernels.packed_hop = record
+        try:
+            idx.search(gqs, k, ef_search=100)
+        finally:
+            hnsw_kernels.packed_hop = packed_hop
+        check(sorted(states) == [0, 4, 12], f"captured hops {sorted(states)}")
+    finally:
+        os.environ.pop(env, None)
+
+    def with_rows(st, rows, metric, qs):
+        """A captured state cut to its first ``rows`` queries, scored
+        under ``metric`` against ``qs`` (quantized anew)."""
+        pool_d, pool_p, sel, nbr0, vals, _, ef, _, (_, _, _, pn, sc) = st
+        e_sel = sel.numel() // len(pool_d)
+        qs = qs[:rows].contiguous()
+        qc, sq, q2 = D.int8_query(qs, sc)
+        return [pool_d[:rows], pool_p[:rows], sel[:rows * e_sel], nbr0, vals,
+                qs, ef, metric, (qc, sq, q2, pn, sc)]
+
+    count = dict(packed_hop.launches_by_slab)  # checks below do not count
+    cases = []
+    for hop, st in sorted(states.items()):
+        d1, p1 = packed_hop(*st)
+        d0, p0 = packed_hop_plain(*st)
+        torch.cuda.synchronize()
+        check(torch.equal(d1, d0) and torch.equal(p1, p0),
+              f"K2-int8 equals its plain version (L2, hop {hop})")
+        cases.append({"hop": hop, "metric": "L2", "queries": len(st[5]),
+                      "equal": True, "max_abs_err": 0.0})
+    st = states[4]
+    qn = st[5] / torch.clamp(st[5].norm(dim=1, keepdim=True), min=1e-30)
+    for metric, q_use in ((Metric.IP, qn), (Metric.L1, st[5])):
+        s2 = with_rows(st, 2000, metric, q_use)
+        d1, p1 = packed_hop(*s2)
+        d0, p0 = packed_hop_plain(*s2)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(d0)
+        err = float((d1 - d0)[fin].abs().max())
+        if metric is Metric.IP:
+            check(torch.equal(d1, d0) and torch.equal(p1, p0),
+                  "K2-int8 equals its plain version (IP, normalized queries)")
+            tol = 0.0
+        else:
+            bound = int8_l1_bound(d0, dim)
+            assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu(),
+                             atol=bound.cpu().numpy(), rtol=0.0)
+            tol = float(bound[fin].max())
+        cases.append({"hop": 4, "metric": metric.name, "queries": len(s2[5]),
+                      "equal": metric is Metric.IP, "max_abs_err": err,
+                      "tolerance_max": tol})
+    # timed at the main path's shapes: ef 100, hop 4 (Q = 8,000, E = 8)
+    pool_d, _, sel, nbr0, vals, qs_p, ef = st[:7]
+    q_rows, m2 = len(qs_p), nbr0.shape[1]
+    live = sel[sel >= 0].long()
+    cands = int((nbr0[live] >= 0).sum())
+    k2_bound, k2_by = bound_ms(
+        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
+        + (dim + 4) * cands + (dim + 8) * q_rows,
+        2.0 * cands * dim, INT8_OPS)
+    k2_ms = cuda_ms(lambda: packed_hop(*st), reps=10)
+    k2_kernel_ms, k2_events = kernel_only_ms(lambda: packed_hop(*st), reps=20)
+    k2_plain = cuda_ms(lambda: packed_hop_plain(*st), reps=3)
+    packed_hop.launches_by_slab = count
+    del states
+    # the bf16 slab's kernel at the same hop, for comparison: the same
+    # selections over a bf16 slab of this graph
+    idx._drop_packed()
+    b16 = idx._ensure_nbr_vals(torch.bfloat16)
+    st_b = [*st[:4], b16, qs_p, ef, Metric.L2]
+    bf16_ms = cuda_ms(lambda: packed_hop(*st_b), reps=10)
+    bf16_kernel_ms, _ = kernel_only_ms(lambda: packed_hop(*st_b), reps=20)
+    bf16_bound, _ = bound_ms(
+        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
+        + 2 * dim * cands + 4 * dim * q_rows, 2.0 * cands * dim)
+    packed_hop.launches_by_slab = count
+    total = torch.cuda.get_device_properties(dev).total_memory
+    pick_1m = auto_packed_dtype(1_000_000, 16, dim, Metric.L2, total)
+    check(pick_1m == torch.int8, f"auto picks int8 at 1M x {dim}, not {pick_1m}")
+    emit({"phase": "halfvec", "nvidia_smi": smi, "n": n, "queries": nq,
+          "dim": dim, "dtype": "bfloat16", "data_s": data_s,
+          "exact_gt_s": gt_s, "exact_path": flat.last_path,
+          "gt_vs_tiled": gt_check, "build_s": build_s,
+          "build_phases": build_phases, "auto_plan_200k": "bfloat16",
+          "tiers": tiers, "launches": launches,
+          "k2_int8_vs_plain": cases,
+          "k2_int8_timed": {"ef": ef, "hop": 4, "queries": q_rows,
+                            "expand": sel.numel() // q_rows,
+                            "live_candidates": cands, "ms": k2_ms,
+                            "kernel_only_ms": k2_kernel_ms,
+                            "kernel_events": k2_events,
+                            "plain_ms": k2_plain, "bound_ms": k2_bound,
+                            "bound_by": k2_by,
+                            "bf16_slab_ms": bf16_ms,
+                            "bf16_slab_kernel_only_ms": bf16_kernel_ms,
+                            "bf16_slab_bound_ms": bf16_bound},
+          "auto_plan_1m": {"rows": 1_000_000, "dim": dim, "m": 16,
+                           "total_memory": total,
+                           "pick": str(pick_1m).replace("torch.", "")},
+          "seconds": time.perf_counter() - t_phase})
+    idx._drop_packed()
+    del idx, table, flat, st, st_b, b16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "packed_hop_int8", "route": "cuda",
+            "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
+            "replaces": "pgvector_tpu/index/hnsw_kernels.py:202 "
+                        "(_int8_point_scores, an XLA program) in front of "
+                        "pgvector_tpu/ops/pallas_hop.py:154",
+            "launches": tiers["int8"]["launches"], "on_main_path": True,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": k2_ms, "kernel_only_ms": k2_kernel_ms,
+            "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+            "library_ms": None, "cases": cases}
+
+
 def _profiled_waves(index, orig_sl):
     """Wrap ``index._insert_wave`` for a build: the middle wave through
     torch.profiler (with the candidates its beams could score), every
@@ -1434,6 +1702,7 @@ def main():
     # ---- 4. the main path -------------------------------------------------
     fused_topk.launches = 0
     packed_hop.launches = 0
+    packed_hop.launches_by_slab = dict.fromkeys(packed_hop.launches_by_slab, 0)
     hop_tail.launches = 0
     torch.cuda.reset_peak_memory_stats()
     k = 10
@@ -1541,7 +1810,7 @@ def main():
                    "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())})
     # timed at the main path's shapes: ef 100, hop 4 (Q = 8,000, E = 8)
     st = states[(100, 4)]
-    pool_d, _, sel, nbr0, vals, qs_p, ef, _ = st
+    pool_d, _, sel, nbr0, vals, qs_p, ef = st[:7]
     q_rows, m2, dim = len(qs_p), nbr0.shape[1], vals.shape[2]
     live = sel[sel >= 0].long()
     cands = int((nbr0[live] >= 0).sum())
@@ -1582,6 +1851,9 @@ def main():
     torch.cuda.empty_cache()
     bit_rows = bit_sparse_phase(db, qs, k, smi, args.n, dev)
 
+    # ---- 9. halfvec at GIST-1M's width, on a table of its own -----------
+    int8_row = halfvec_phase(smi, dev, n=min(200_000, args.n))
+
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/fused_topk.cu",
@@ -1607,6 +1879,7 @@ def main():
          "ms": k2_tail[-1]["ms"], "plain_ms": k2_tail[-1]["plain_ms"],
          "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None},
         *bit_rows,
+        int8_row,
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,11 @@
 """pgvector_tpu_torch — the PyTorch / CUDA port of ``pgvector_tpu``.
 
 The same engine as the JAX package (reference: pgvector/pgvector 0.8.6),
-on torch tensors: dense, bit and sparse tables on the card (or a
-``device`` the caller names, such as ``"cpu"``), exact search, HNSW,
+on torch tensors: the value types (``vector``, ``halfvec``, ``sparsevec``,
+``bit``) with their text and binary I/O and the vector aggregates; dense
+(f32, bf16, f16), bit and sparse tables on the card (or a ``device`` the
+caller names, such as ``"cpu"``), exact search (K1 inside its gate, the
+grouped engine, the tiled scan), HNSW (packed f32, bf16 or int8 slabs),
 IVFFlat (dense and bit), the re-ranking pipelines (binary quantization,
 subvectors, expression indexes), and checkpoints in the JAX package's
 directory format, with the JAX package's two Pallas kernels as
@@ -12,7 +15,8 @@ first use):
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
   (3xTF32 on the tensor cores)
 - K2 :mod:`pgvector_tpu_torch.ops.packed_hop` — one HNSW beam-search hop
-  (neighbor ids, slab scores and the hop tail); the tail alone is
+  (neighbor ids, slab scores and the hop tail) over an f32, bf16 or
+  int8 slab (the int8 tier's scorer, ``__dp4a``); the tail alone is
   :mod:`pgvector_tpu_torch.ops.hop_tail`
 
 and two more for the bit type, whose popcounts the JAX package left to
@@ -49,6 +53,9 @@ from .types import (  # noqa: E402
     HalfVec,
     SparseVec,
     Bit,
+    VectorAggState,
+    avg,
+    vec_sum,
     VECTOR_MAX_DIM,
     HALFVEC_MAX_DIM,
     SPARSEVEC_MAX_DIM,
@@ -86,6 +93,9 @@ __all__ = [
     "HalfVec",
     "SparseVec",
     "Bit",
+    "VectorAggState",
+    "avg",
+    "vec_sum",
     "VectorError",
     "DataException",
     "InvalidTextRepresentation",

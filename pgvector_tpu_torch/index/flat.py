@@ -3,11 +3,16 @@ truth for every recall test; counterpart of ``pgvector_tpu.index.flat``.
 
 Routes, named in ``last_path`` after each search:
 
-- dense: L2 and inner product over an f32 table with at least 4096 rows
-  and k ≤ 64 go to K1 (:mod:`..ops.fused_topk`, "fused", the reference's
-  gate ``flat.py:154-156``); every other dense search (cosine, L1, k > 64,
-  small tables) goes to the tiled scan (:func:`..ops.topk.tiled_topk`,
-  "tiled").  The reference's default grouped engine is not ported.
+- dense, by ``PGVECTOR_TPU_EXACT`` (``grouped``, the default; ``pallas``;
+  ``xla``): L2 and inner product over an f32 table with at least 4096
+  rows and k ≤ 64 go to K1 (:mod:`..ops.fused_topk`, "fused", the
+  reference's gate ``flat.py:154-156``) unless the mode is ``xla``; under
+  ``grouped`` the rest of L2, inner product and cosine over at least 4096
+  rows (cosine, k > 64, bf16 and f16 tables) go to the grouped engine
+  (:func:`..ops.topk.grouped_exact_topk`, "grouped"); everything else (L1,
+  small tables, and every search under ``xla``) goes to the tiled scan
+  (:func:`..ops.topk.tiled_topk`, "tiled").  The reference's retry and
+  fallback around its Pallas compile stay out of the port.
 - bit: Hamming and Jaccard with k ≤ 64 go to K4
   (:func:`..ops.bit_scan.bit_topk`, "bit-kernel"); k > 64 to the tiled
   scan over ``bit_scores`` ("tiled").
@@ -35,7 +40,7 @@ from ..ops import distance as D
 from ..ops import fused_topk
 from ..ops.bit_scan import BIT_METRICS, bit_topk
 from ..ops.metric import Metric
-from ..ops.topk import merge_topk, tiled_topk
+from ..ops.topk import grouped_exact_topk, merge_topk, tiled_topk
 from ..store.table import BitTable, DenseTable, SparseTable
 from ..types import Bit, HalfVec, SparseVec, Vector
 from ..utils.stats import ScanStats
@@ -49,6 +54,45 @@ FUSED_MIN_ROWS = 4096
 #: the fewest rows a densified tile may hold before the merge join wins
 #: again (flat.py:284-285)
 MIN_TILE_ROWS = 512
+
+
+def _exact_mode() -> str:
+    """The dense exact engine, ``PGVECTOR_TPU_EXACT`` (flat.py:28-33):
+    ``grouped`` (the default), ``pallas`` (K1 within its gate, else the
+    tiled scan) or ``xla`` (the tiled scan)."""
+    return os.environ.get("PGVECTOR_TPU_EXACT", "grouped")
+
+
+def _grouped_group_size(n: int, nq: int) -> int:
+    """Group width balancing the (Q, N/group) group-min matrix (≤ ~1.5 GB)
+    against the refine's gather of k·group rows a query (flat.py:90)."""
+    g = 16
+    while g < 1024 and (n // g) * nq * 4 > 15 * 2**27:
+        g *= 2
+    return g
+
+
+def _dense_row_scores(metric: Metric, qs: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """(Q, C) stored distances of per-query candidate rows ``v`` (Q, C, D)
+    (flat.py:54): the formulation of :func:`..ops.distance.dense_scores`
+    (L2 squared, cosine over raw norms, clamped), batched per query."""
+    qf = qs.float()
+    v = v.float()
+    D.dot_precision()
+    ip = torch.bmm(v, qf[:, :, None])[:, :, 0]
+    if metric is Metric.IP:
+        return -ip
+    v_sq = torch.sum(v * v, dim=-1)
+    if metric is Metric.L2:
+        q_sq = torch.sum(qf * qf, dim=-1, keepdim=True)
+        return torch.clamp(q_sq - 2.0 * ip + v_sq, min=0.0)
+    q_n = torch.sqrt(torch.sum(qf * qf, dim=-1, keepdim=True))
+    denom = q_n * torch.sqrt(v_sq)
+    sim = torch.where(denom > 0, ip / torch.where(denom > 0, denom, 1.0),
+                      -torch.inf)
+    return torch.where(denom > 0, 1.0 - torch.clamp(sim, -1.0, 1.0),
+                       torch.inf)
 
 
 def _coerce_dense_queries(q, dim: int, device) -> torch.Tensor:
@@ -108,13 +152,22 @@ def sparse_query_arrays(q, width: int, device):
 
 def dense_exact(metric: Metric, qs: torch.Tensor, data: torch.Tensor,
                 n: int, k: int, valid: torch.Tensor, tile: int):
-    """The dense exact engine: K1 for L2/IP over an f32 table of at least
-    FUSED_MIN_ROWS rows and k ≤ 64, else the tiled scan.  Returns (stored
-    distances, int32 ids, the route's name)."""
-    if (fused_topk.supported(metric, data.dtype) and n >= FUSED_MIN_ROWS
-            and k <= fused_topk.MAX_K):
+    """The dense exact engine, routed as the module docstring says.
+    Returns (stored distances, int32 ids, the route's name)."""
+    mode = _exact_mode()
+    if (mode != "xla" and fused_topk.supported(metric, data.dtype)
+            and n >= FUSED_MIN_ROWS and k <= fused_topk.MAX_K):
         d, i = fused_topk.exact_topk(metric, qs, data[:n], k, valid=valid)
         return d, i, "fused"
+    if (mode == "grouped" and n >= FUSED_MIN_ROWS
+            and metric in (Metric.L2, Metric.IP, Metric.COSINE)):
+        def score_rows(cand):
+            return _dense_row_scores(metric, qs, data[cand])
+
+        d, i = grouped_exact_topk(
+            lambda t: D.dense_scores(metric, qs, t), score_rows, (data,), n,
+            k, group=_grouped_group_size(n, qs.shape[0]), valid=valid)
+        return d, i, "grouped"
 
     def score(tile_data):
         return D.dense_scores(metric, qs, tile_data)

@@ -28,8 +28,9 @@ to 10 heap TIDs.
 
 Search is Algorithm 5 (hnswscan.c:25-56).  On CUDA tables the layer-0 scan
 of a dense index reads an adjacency-packed copy of the neighbor values
-(f32 or bf16, sized to the card's memory) and runs each hop in K2; bit
-and sparse hops gather rows (bit distances in K5).  ``hnsw.iterative_scan``
+(f32, bf16 or int8 with a per-dim scale, sized to the card's memory by
+:func:`auto_packed_dtype`) and runs each hop in K2; bit and sparse hops
+gather rows (bit distances in K5).  ``hnsw.iterative_scan``
 resumes exhausted searches from their discarded candidates with a
 persistent visited set, on row gathers, as the reference does.
 
@@ -37,7 +38,8 @@ Vacuum is the reference's 4 passes (hnswvacuum.c:777-797): drop dead TIDs,
 repair the lists that pointed at deleted elements by re-searching, check,
 then free the slots.
 
-Not ported yet: the int8 and sketch packed tiers.
+Left out of the port: the ``sketch`` packed tier (a JL projection the
+reference offers only on request).
 """
 
 from __future__ import annotations
@@ -82,7 +84,27 @@ BIT_OPCLASSES = (Metric.HAMMING, Metric.JACCARD)
 SPARSE_OPCLASSES = (Metric.L2, Metric.IP, Metric.COSINE, Metric.L1)
 
 #: PGVECTOR_TPU_PACKED_SCAN modes of the reference that the port takes
-PACKED_MODES = ("auto", "off", "f32", "bf16")
+PACKED_MODES = ("auto", "off", "f32", "bf16", "int8")
+
+
+def auto_packed_dtype(cap_e: int, m: int, dim: int, metric: Metric,
+                      total_bytes: int) -> Optional[torch.dtype]:
+    """The ``auto`` packed tier for a (cap_e, 2m, dim) slab on a card of
+    ``total_bytes``: f32 while the f32 slab is at most 1/8 of the memory,
+    bf16 while its bf16 half is at most 9/16, int8 while its quarter is
+    at most 9/16 and the metric has the dot form (L2, inner product,
+    cosine; L1 would dequantize the slab in f32, the bytes the tier saves),
+    else None (row gathers).  The reference's 2 GB / 9 GB / 9 GB
+    thresholds on a 16 GB chip (hnsw.py:1238-1246), in the same ratios."""
+    f32_bytes = cap_e * 2 * m * dim * 4
+    if f32_bytes <= total_bytes // 8:
+        return torch.float32
+    if f32_bytes // 2 <= total_bytes * 9 // 16:
+        return torch.bfloat16
+    if (f32_bytes // 4 <= total_bytes * 9 // 16
+            and metric in (Metric.L2, Metric.IP, Metric.COSINE)):
+        return torch.int8
+    return None
 
 
 class HNSWIndex:
@@ -234,8 +256,11 @@ class HNSWIndex:
         self._elem_rows_dev: Optional[torch.Tensor] = None
         self._dirty = True
         #: adjacency-packed neighbor values for the scan (built lazily,
-        #: dropped by any graph change)
+        #: dropped by any graph change); an int8 slab keeps its per-dim
+        #: scale (D,) and each element's dequantized squared norm beside it
         self._nbr_vals: Optional[torch.Tensor] = None
+        self._nbr_scale: Optional[torch.Tensor] = None
+        self._nbr_norm2: Optional[torch.Tensor] = None
         self._last_scan_steps = 0
         self._last_scan_rounds = 1
         #: elements the last vacuum freed and re-linked
@@ -475,7 +500,7 @@ class HNSWIndex:
         if need_up.any():
             self.up_slot[elems[need_up]] = self._alloc_upper_bulk(int(need_up.sum()))
         self._dirty = True
-        self._nbr_vals = None  # the graph is about to change
+        self._drop_packed()  # the graph is about to change
         if values is None:
             if np.array_equal(self.elem_rows[elems, 0], elems):
                 self._refresh_alias()  # the heap rows are these values
@@ -629,7 +654,7 @@ class HNSWIndex:
         if new_cap > 2**30:
             raise DataException("hnsw index cannot hold more than 2^30 elements")
         self._ensure_unroll_depth(self._derive_l_unroll(new_cap))
-        self._nbr_vals = None
+        self._drop_packed()
         pad = new_cap - self.cap_e
         # growth pads the values past the table: the copy is private now
         self._refresh_alias()
@@ -944,50 +969,71 @@ class HNSWIndex:
 
     def _packed_plan(self):
         """Layer-0 value packing dtype (or None for row gathers), from
-        PGVECTOR_TPU_PACKED_SCAN: ``auto``, ``off``, ``f32``, ``bf16``.
-
-        ``auto`` packs only on CUDA (as the reference packs only on a TPU):
-        f32 while the (cap, 2m, D) copy is at most 1/8 of the device
-        memory, bf16 while its bf16 half is at most 9/16 — the reference's
-        2 GB / 9 GB thresholds on a 16 GB chip, in the same ratio."""
+        PGVECTOR_TPU_PACKED_SCAN: ``auto``, ``off``, ``f32``, ``bf16``,
+        ``int8``.  ``auto`` packs only on CUDA (as the reference packs
+        only on a TPU), by :func:`auto_packed_dtype` over the card's
+        memory."""
         mode = os.environ.get("PGVECTOR_TPU_PACKED_SCAN", "auto")
+        if mode == "sketch":
+            raise InvalidParameterValue(
+                'PGVECTOR_TPU_PACKED_SCAN "sketch" is left out of the port '
+                f"(one of {', '.join(PACKED_MODES)})")
         if mode not in PACKED_MODES:
             raise InvalidParameterValue(
-                f'PGVECTOR_TPU_PACKED_SCAN "{mode}" is not ported yet '
+                f'PGVECTOR_TPU_PACKED_SCAN "{mode}" is not a packed tier '
                 f"(one of {', '.join(PACKED_MODES)})")
         if mode == "off" or self.kind != "dense":
             # only dense rows are value-packed (hnsw.py:1225-1229)
             return None
-        if mode == "f32":
-            return torch.float32
-        if mode == "bf16":
-            return torch.bfloat16
+        if mode != "auto":
+            return {"f32": torch.float32, "bf16": torch.bfloat16,
+                    "int8": torch.int8}[mode]
         if self.device.type != "cuda":
             return None
         total = torch.cuda.get_device_properties(self.device).total_memory
-        f32_bytes = self.cap_e * 2 * self.m * self.table.dim * 4
-        if f32_bytes <= total // 8:
-            return torch.float32
-        if f32_bytes // 2 <= total * 9 // 16:
-            return torch.bfloat16
-        return None
+        return auto_packed_dtype(self.cap_e, self.m, self.table.dim,
+                                 self.metric, total)
+
+    def _drop_packed(self) -> None:
+        """Forget the slab and, with it, an int8 slab's scale and norms: a
+        later scan rebuilds them over the current values and lists."""
+        self._nbr_vals = self._nbr_scale = self._nbr_norm2 = None
 
     def _ensure_nbr_vals(self, dtype) -> torch.Tensor:
         """nbr_vals[cap, 2m, D] = values[nbr0]: each element's neighbor
         values as one contiguous slab (the scan then gathers Q·expand slabs
         per hop instead of Q·expand·2m rows).  Filled chunk by chunk, in
         place, so the (up to 8.6 GB at 1M×128 bf16) copy is never
-        transiently doubled."""
+        transiently doubled.
+
+        int8 (hnsw.py:1296-1316): symmetric per-dim quantization, scale
+        ``max|values| / 127`` over every value row (floored at 1e-30),
+        rows ``clip(round(v / scale), -127, 127)`` (round half to even,
+        as ``jnp.round``), and each row's dequantized squared norm kept
+        by element id for the L2 close of the hop's dot form."""
         if self._nbr_vals is not None and self._nbr_vals.dtype == dtype:
             return self._nbr_vals
-        self._nbr_vals = None
+        self._drop_packed()
+        vecs = self.values
+        if dtype == torch.int8:
+            scale = torch.clamp(
+                torch.amax(torch.abs(vecs.float()), dim=0), min=1e-30) / 127.0
+            q8 = torch.empty(vecs.shape, dtype=torch.int8, device=self.device)
+            norm2 = torch.empty(vecs.shape[0], device=self.device)
+            for s in range(0, vecs.shape[0], 1 << 18):
+                v = vecs[s: s + (1 << 18)].float()
+                c = torch.clamp(torch.round(v / scale), -127, 127)
+                q8[s: s + (1 << 18)] = c.to(torch.int8)
+                norm2[s: s + (1 << 18)] = torch.sum(
+                    torch.square(c * scale), dim=1)
+            vecs, self._nbr_scale, self._nbr_norm2 = q8, scale, norm2
         out = torch.empty((self.cap_e, 2 * self.m, self.table.dim),
                           dtype=dtype, device=self.device)
         chunk = min(1 << 16, self.cap_e)
         for s in range(0, self.cap_e, chunk):
             nb = self.nbr0[s: s + chunk]
             # bf16: round to nearest even, as JAX's astype
-            out[s: s + chunk] = self.values[K._long(nb)].to(dtype)
+            out[s: s + chunk] = vecs[K._long(nb)].to(dtype)
         self._nbr_vals = out
         return out
 
@@ -1000,6 +1046,7 @@ class HNSWIndex:
             self._up_slot_dev, self._elem_rows_dev, self.table.valid, fmask,
             qs, self.entry, self.entry_level, ef=ef, k=k, heaptids=HEAPTIDS,
             expand=self.beam_expand, packed_vals=packed_vals,
+            packed_scale=self._nbr_scale, packed_norm2=self._nbr_norm2,
             rerank=(pdt is not None and pdt != torch.float32),
             sdim=self._scorer_sdim())
         #: layer-0 hop count of the last scan
@@ -1101,7 +1148,7 @@ class HNSWIndex:
         """hnswbulkdelete's 4 passes (hnswvacuum.c:777-797), wave-batched.
         Each pass is a ``timers`` phase (``hnsw.vacuum.*``); ``last_vacuum``
         counts the elements freed and re-linked."""
-        self._nbr_vals = None  # repair rewrites neighbor lists
+        self._drop_packed()  # repair rewrites neighbor lists
         self.last_vacuum = {"deleted": 0, "repaired": 0}
         dev = self.device
         # pass 1: RemoveHeapTids (hnswvacuum.c:35-173): drop dead TIDs and

@@ -42,8 +42,11 @@ import torch
 
 from ..ops.bit_scan import bit_point_scores
 from ..ops.distance import (dense_point_scores, dot_precision,
-                            highest_precision, scatter_dense,
+                            highest_precision, int8_query, scatter_dense,
                             sparse_scores_batch)
+# the int8 slab's scorer sits beside dense_point_scores, which K2's plain
+# version imports; the reference keeps it here (hnsw_kernels.py:202)
+from ..ops.distance import int8_point_scores  # noqa: F401
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
 
@@ -278,12 +281,13 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     pool_i, pool_x, visited, disc, done, scored), ``scored`` the number of
     candidates each query scored in this hop.
 
-    ``packed`` — optional ``(nbr_vals, qs_p, nbr0)``: adjacency-packed
-    neighbor values ``nbr_vals[cap, 2m, D]`` (f32 or bf16), the queries to
-    score them against and the level-0 lists.  Each expanded node's
-    neighbor values are one contiguous slab; the neighbor ids, the slab
-    scores and the merge run in K2, which takes no visited set and no
-    discarded pool (as the reference's Pallas tail)."""
+    ``packed`` — optional ``(nbr_vals, qs_p, nbr0, int8)``:
+    adjacency-packed neighbor values ``nbr_vals[cap, 2m, D]`` (f32, bf16
+    or int8), the queries to score them against, the level-0 lists and,
+    for an int8 slab, ``(qc, sq, q2, pnorm2, scale)`` (else None).  Each
+    expanded node's neighbor values are one contiguous slab; the neighbor
+    ids, the slab scores and the merge run in K2, which takes no visited
+    set and no discarded pool (as the reference's Pallas tail)."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -304,11 +308,11 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     sel_flat = sel_elem.reshape(-1)
     if packed is not None:
         # neighbor ids, slab scores and the merge in one kernel (K2)
-        nbr_vals, qs_p, nbr0 = packed
+        nbr_vals, qs_p, nbr0, int8 = packed
         pool_packed = pool_i * 2 + pool_x.to(torch.int32)
         d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
                            sel_flat.contiguous(), nbr0, nbr_vals, qs_p, ef,
-                           metric)
+                           metric, int8)
         return d, pp >> 1, (pp & 1) == 1, visited, done
     # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
@@ -862,18 +866,23 @@ def _expand_topk(pool_d, pool_i, elem_rows, row_valid, fmask, k: int,
 def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
                  row_valid, fmask, qs, entry: int, entry_level: int, ef: int,
                  k: int, heaptids: int, expand: int = 1, packed_vals=None,
-                 rerank: bool = False, sdim: int = 0
-                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                 packed_scale=None, packed_norm2=None, rerank: bool = False,
+                 sdim: int = 0) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Algorithm 5 (hnswscan.c:25-56): greedy descent through the upper
     levels, the ef beam at layer 0, then heap-TID expansion.
 
     ``packed_vals`` — optional adjacency-packed neighbor values
-    (nbr_vals[cap, 2m, D], f32 or bf16): layer 0 scores whole neighbor
-    slabs, and each hop after the selection runs in K2.  With ``rerank``
+    (nbr_vals[cap, 2m, D], f32, bf16 or int8): layer 0 scores whole
+    neighbor slabs, and each hop after the selection runs in K2.  An int8
+    slab comes with its per-dim ``packed_scale`` (D,) and ``packed_norm2``
+    (each element's dequantized squared norm); the queries are quantized
+    against the scale once here (:func:`int8_query`), where the reference
+    quantizes them again each hop to the same values.  With ``rerank``
     the final pool is re-scored against the exact f32 values, so a bf16
-    cache changes only pool admission, never the emitted order.  Returns
-    (stored distances, row ids, layer-0 hops).  Only a dense index has
-    packed values (the reference packs dense rows only, hnsw.py:1203)."""
+    or int8 cache changes only pool admission, never the emitted order.
+    Returns (stored distances, row ids, layer-0 hops).  Only a dense index
+    has packed values (the reference packs dense rows only,
+    hnsw.py:1203)."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
     nq = _nq(qs)
@@ -882,8 +891,13 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     for lc in range(entry_level, 0, -1):
         cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
                                     max_steps=512)
-    packed = ((packed_vals, qs.contiguous(), nbr0)
-              if packed_vals is not None else None)
+    packed = None
+    if packed_vals is not None:
+        int8 = None
+        if packed_vals.dtype == torch.int8:
+            qc, sq, q2 = int8_query(qs, packed_scale)
+            int8 = (qc, sq, q2, packed_norm2, packed_scale)
+        packed = (packed_vals, qs.contiguous(), nbr0, int8)
     pool_d, pool_i, steps = search_layer(
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
         ef=ef, max_steps=8 * ef + 64, expand=expand,

@@ -182,7 +182,7 @@ def hnsw_from_numpy(table, arrays: Dict[str, np.ndarray],
                                           for a in idx._value_arrays())))
         idx._dup_index = {keys[e]: int(e) for e in live}
     idx._dirty = True
-    idx._nbr_vals = None
+    idx._drop_packed()
     return idx
 
 

@@ -1,10 +1,11 @@
-"""Tensor ops — dense distances, tiled top-k and the CUDA kernels: K1
+"""Tensor ops — dense distances, the tiled and grouped top-k engines and
+the CUDA kernels: K1
 (:mod:`.fused_topk`, exact scan) and K2 (:mod:`.packed_hop`, one fused
 beam-search hop, whose tail :mod:`.hop_tail` also offers alone)."""
 
 from .metric import Metric, stored_to_user, NORMALIZED_METRICS
 from .distance import dense_scores, dense_pair, sq_norms, dot_precision
-from .topk import topk_smallest, merge_topk, tiled_topk
+from .topk import topk_smallest, merge_topk, tiled_topk, grouped_exact_topk
 
 __all__ = [
     "Metric",
@@ -17,4 +18,5 @@ __all__ = [
     "topk_smallest",
     "merge_topk",
     "tiled_topk",
+    "grouped_exact_topk",
 ]

@@ -41,6 +41,10 @@ _SIGNATURES = {
     # metric, out_d, out_p, stream
     "pgvt_packed_hop": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
+    # pool_d, pool_p, sel, nbr0, nbr_vals, qc, sq, q2, pnorm2, scale, qs,
+    # q, ef, e_sel, m2, d, metric, out_d, out_p, stream
+    "pgvt_packed_hop_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # qs, db, pop, valid, nq, n, w, k, jaccard, splits, tiles_per_split,
     # part_d, part_i, out_d, out_i, stream
     "pgvt_bit_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -112,6 +112,55 @@ def dense_point_scores(metric: Metric, qs: torch.Tensor, vf: torch.Tensor,
     return torch.where(rows >= 0, d, torch.inf)
 
 
+def int8_query(qs: torch.Tensor, scale: torch.Tensor):
+    """The query side of the int8 slab scorer (hnsw_kernels.py:216-225):
+    the scale-folded query ``qf = q ⊙ scale`` re-quantized per row, ``qc
+    = clip(round(qf / sq), -127, 127)`` (round half to even) with the step
+    ``sq = max(max|qf|, 1e-30) / 127``, and ``q2 = Σ q²``.  Returns (qc
+    int8, sq, q2)."""
+    qf = qs.float() * scale
+    sq = torch.clamp(torch.amax(torch.abs(qf), dim=1), min=1e-30) / 127.0
+    qc = torch.clamp(torch.round(qf / sq[:, None]), -127, 127)
+    return qc.to(torch.int8), sq, torch.sum(torch.square(qs.float()), dim=1)
+
+
+#: dims per f32 product of the int8 cross term: 1024 × 127² < 2^24, so
+#: every partial sum is an exact integer in f32 whatever its order
+_INT8_CHUNK = 1024
+
+
+def int8_point_scores(metric: Metric, qs: torch.Tensor, scale: torch.Tensor,
+                      pnorm2: torch.Tensor, v: torch.Tensor,
+                      rows: torch.Tensor, query=None) -> torch.Tensor:
+    """(Q, W, D) int8 candidate rows of a per-dim ``scale``d slab vs (Q, D)
+    f32 queries → (Q, W) f32 stored distances; negative ids give +inf.
+    The plain version of the reference's ``_int8_point_scores``
+    (hnsw_kernels.py:202-231) and of K2's int8 slab: the cross term
+    ``qc · x`` is an exact integer (the reference's int8 × int8 → int32
+    dot), then ``t = float(cross) · sq`` and L2 ``(q2 - 2t) + pnorm2[id]``
+    with ``pnorm2`` each element's dequantized squared norm, inner product
+    and cosine ``-t``.  L1 has no dot form: ``Σ |q - float(x) · scale|``.
+    ``query`` = :func:`int8_query`'s (qc, sq, q2), made here if None."""
+    if metric is Metric.L1:
+        d = torch.sum(torch.abs(qs.float()[:, None, :] - v.float() * scale),
+                      dim=-1)
+        return torch.where(rows >= 0, d, torch.inf)
+    if metric not in (Metric.L2, Metric.IP, Metric.COSINE):
+        raise ValueError(metric)
+    qc, sq, q2 = int8_query(qs, scale) if query is None else query
+    cross = 0
+    for s in range(0, v.shape[-1], _INT8_CHUNK):
+        part = torch.bmm(v[..., s: s + _INT8_CHUNK].float(),
+                         qc[:, s: s + _INT8_CHUNK].float()[:, :, None])
+        cross = cross + part[..., 0].to(torch.int64)
+    t = cross.to(torch.float32) * sq[:, None]
+    if metric is Metric.L2:
+        d = (q2[:, None] - 2.0 * t) + pnorm2[torch.clamp(rows, min=0).long()]
+    else:
+        d = -t
+    return torch.where(rows >= 0, d, torch.inf)
+
+
 def dense_pair(metric: Metric, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise stored distance for aligned batches (B, D) x (B, D) → (B,)."""
     af = a.float()

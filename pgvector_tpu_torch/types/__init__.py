@@ -1,14 +1,12 @@
-"""Value types that the port's tables and exact search accept.
-
-:class:`Vector` (dense fp32, src/vector.c) and :class:`HalfVec` (dense
-fp16, src/halfvec.c) with the reference's constructor checks only;
-:class:`SparseVec` (sparse fp32, src/sparsevec.c) without its text and
-binary I/O; :class:`Bit` (the ``bit`` string, src/bitvec.c) whole.  The
-parsers, scalar functions and aggregates of the dense types are not
-ported yet.
+"""Value types, counterparts of :mod:`pgvector_tpu.types`:
+:class:`Vector` (dense fp32, src/vector.c), :class:`HalfVec` (dense fp16,
+src/halfvec.c), :class:`SparseVec` (sparse fp32, src/sparsevec.c) and
+:class:`Bit` (the ``bit`` string, src/bitvec.c), with their text and
+binary I/O, scalar functions, ordering, and the vector aggregates
+(:class:`VectorAggState`, :func:`avg`, :func:`vec_sum`).
 """
 
-from .vector import Vector, VECTOR_MAX_DIM
+from .vector import Vector, VectorAggState, avg, vec_sum, VECTOR_MAX_DIM
 from .halfvec import HalfVec, HALFVEC_MAX_DIM
 from .sparsevec import SparseVec, SPARSEVEC_MAX_DIM, SPARSEVEC_MAX_NNZ
 from .bitvec import Bit, BITVEC_MAX_DIM
@@ -18,6 +16,9 @@ __all__ = [
     "HalfVec",
     "SparseVec",
     "Bit",
+    "VectorAggState",
+    "avg",
+    "vec_sum",
     "VECTOR_MAX_DIM",
     "HALFVEC_MAX_DIM",
     "SPARSEVEC_MAX_DIM",

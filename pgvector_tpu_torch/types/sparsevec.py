@@ -1,30 +1,33 @@
 """``sparsevec`` — the sparse float32 value type; counterpart of
-:class:`pgvector_tpu.types.SparseVec` (reference src/sparsevec.c) without
-its text and binary I/O.
+:class:`pgvector_tpu.types.SparseVec` (reference src/sparsevec.c).
 
 The layout is the reference's ``{dim, nnz, int32 indices[] (sorted,
 0-based), float values[]}`` (src/sparsevec.h:18-29), at most 1e9
 dimensions and 16,000 non-zeros (src/sparsevec.h:11-12).  Zero values are
-dropped on input, indices must ascend without duplicates.  Distances are
-the reference's merge joins (src/sparsevec.c:822-1056) as set operations,
-accumulated in f32; norms in f64.  ``from_text``, ``to_text``,
-``from_binary`` and ``to_binary`` need the reference's strtof scanner,
-which is not ported yet: they raise ``FeatureNotSupported``.
+dropped on input, indices must ascend without duplicates.  The text format
+is ``{index:value,...}/dim`` with 1-based indices (src/sparsevec.c:203-423),
+the binary format big-endian ``{int32 dim, int32 nnz, int32 unused,
+int32 indices[nnz], float4 values[nnz]}`` (src/sparsevec.c:505-585).
+Distances are the reference's merge joins (src/sparsevec.c:822-1056) as
+set operations, accumulated in f32; norms in f64.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+import re
+import struct
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..errors import (
     DataException,
-    FeatureNotSupported,
+    InvalidTextRepresentation,
     NumericValueOutOfRange,
     ProgramLimitExceeded,
 )
+from . import _scan
 from .halfvec import HalfVec
 from .vector import VECTOR_MAX_DIM, Vector
 
@@ -54,9 +57,19 @@ def _check_nnz(nnz: int, dim: int) -> None:
         raise DataException("sparsevec cannot have more elements than dimensions")
 
 
-def _text_io(name: str):
-    raise FeatureNotSupported(
-        f"sparsevec {name} needs the text scanner, which is not ported yet")
+def _check_expected_dim(typmod: int, dim: int) -> None:
+    if typmod != -1 and typmod != dim:
+        raise DataException(f"expected {typmod} dimensions, not {dim}")
+
+
+def _parse_long(s: str, i: int) -> Tuple[int, int]:
+    """strtol base 10 (src/sparsevec.c:275-291), clamped to int32."""
+    m = re.match(r"[+-]?\d+", s[i:])
+    if m is None:
+        raise InvalidTextRepresentation(
+            f'invalid input syntax for type sparsevec: "{s}"')
+    v = min(max(int(m.group(0)), -(2**31) + 1), 2**31 - 1)
+    return v, i + m.end()
 
 
 class SparseVec:
@@ -127,20 +140,103 @@ class SparseVec:
                 f"vector cannot have more than {VECTOR_MAX_DIM} dimensions")
         return Vector(self.to_dense())
 
-    # -- text and binary I/O wait for the scanner ---------------------------
+    # -- text I/O (src/sparsevec.c:203-423) ----------------------------------
     @classmethod
     def from_text(cls, lit: str, typmod: int = -1) -> "SparseVec":
-        _text_io("text input")
+        if lit.count(",") + 1 > SPARSEVEC_MAX_NNZ:
+            raise ProgramLimitExceeded(
+                f"sparsevec cannot have more than {SPARSEVEC_MAX_NNZ} non-zero elements")
+        i = _scan.skip_space(lit, 0)
+        if i >= len(lit) or lit[i] != "{":
+            raise _scan.bad_literal("sparsevec", lit,
+                                    'Vector contents must start with "{".')
+        i = _scan.skip_space(lit, i + 1)
+        pairs: List[Tuple[int, np.float32]] = []
+        if i < len(lit) and lit[i] == "}":
+            i += 1
+        else:
+            while True:
+                i = _scan.skip_space(lit, i)
+                if i >= len(lit):
+                    raise _scan.bad_literal("sparsevec", lit)
+                index, i = _parse_long(lit, i)
+                i = _scan.skip_space(lit, i)
+                if i >= len(lit) or lit[i] != ":":
+                    raise _scan.bad_literal("sparsevec", lit)
+                i = _scan.skip_space(lit, i + 1)
+                val, end, text = _scan.strtof(lit, i)
+                if val is None:
+                    raise _scan.bad_literal("sparsevec", lit)
+                f = _scan.narrow_f32(val, text, "sparsevec")
+                if np.isnan(f):
+                    raise DataException("NaN not allowed in sparsevec")
+                if np.isinf(f):
+                    raise DataException("infinite value not allowed in sparsevec")
+                pairs.append((index, f))
+                i = _scan.skip_space(lit, end)
+                if i < len(lit) and lit[i] == ",":
+                    i += 1
+                elif i < len(lit) and lit[i] == "}":
+                    i += 1
+                    break
+                else:
+                    raise _scan.bad_literal("sparsevec", lit)
+        i = _scan.skip_space(lit, i)
+        if i >= len(lit) or lit[i] != "/":
+            raise _scan.bad_literal("sparsevec", lit,
+                                    'Unexpected end of input. Expected "/".')
+        i = _scan.skip_space(lit, i + 1)
+        dim, i = _parse_long(lit, i)
+        i = _scan.skip_space(lit, i)
+        if i != len(lit):
+            raise _scan.bad_literal("sparsevec", lit, "Junk after dimensions.")
+        _check_dim(dim)
+        _check_expected_dim(typmod, dim)
+        # sorted by index; text indices are 1-based (src/sparsevec.c:376-408)
+        pairs.sort(key=lambda p: p[0])
+        indices, values = [], []
+        prev = None
+        for index, f in pairs:
+            zero_based = index - 1
+            if zero_based < 0 or zero_based >= dim:
+                raise DataException("sparsevec index out of bounds")
+            if zero_based == prev:
+                raise DataException("sparsevec indices must not contain duplicates")
+            prev = zero_based
+            if f != 0:  # zeros are never stored
+                indices.append(zero_based)
+                values.append(f)
+        return cls(dim, np.array(indices, dtype=np.int32),
+                   np.array(values, dtype=np.float32), _checked=True)
 
     def to_text(self) -> str:
-        _text_io("text output")
+        """sparsevec_out, 1-based indices."""
+        body = ",".join(f"{int(i) + 1}:{_scan.format_f32(v)}"
+                        for i, v in zip(self.indices, self.values))
+        return "{" + body + "}/" + str(self.dim)
 
+    # -- binary I/O (src/sparsevec.c:505-585) --------------------------------
     @classmethod
     def from_binary(cls, data: bytes, typmod: int = -1) -> "SparseVec":
-        _text_io("binary input")
+        dim, nnz, unused = struct.unpack_from(">iii", data, 0)
+        _check_dim(dim)
+        _check_nnz(nnz, dim)
+        _check_expected_dim(typmod, dim)
+        if unused != 0:
+            raise DataException(f"expected unused to be 0, not {unused}")
+        idx = np.frombuffer(data, dtype=">i4", count=nnz,
+                            offset=12).astype(np.int32)
+        val = np.frombuffer(data, dtype=">f4", count=nnz,
+                            offset=12 + 4 * nnz).astype(np.float32)
+        if (val == 0).any():
+            raise DataException(
+                "binary representation of sparsevec cannot contain zero values")
+        return cls(dim, idx, val)
 
     def to_binary(self) -> bytes:
-        _text_io("binary output")
+        return (struct.pack(">iii", self.dim, self.nnz, 0)
+                + self.indices.astype(">i4").tobytes()
+                + self.values.astype(">f4").tobytes())
 
     # -- distances (merge-join semantics, f32 accumulation) ------------------
     def _check_dims(self, other: "SparseVec") -> None:
@@ -270,5 +366,4 @@ class SparseVec:
         return hash((self.dim, self.indices.tobytes(), self.values.tobytes()))
 
     def __repr__(self) -> str:
-        return (f"SparseVec({self.dim}, {self.indices.tolist()!r}, "
-                f"{self.values.tolist()!r})")
+        return f"SparseVec({self.to_text()!r})"

@@ -6,7 +6,9 @@ its defaults on the card, and its iterative scans and vacuum against the
 CPU's on the same graph; checkpoints loaded onto the card; k-means's
 generator on the table's device; K1 at 4,096 dims (the densified sparse
 scans); K4 (bit_topk) and K5 (bit_point_scores) equal to their plain
-versions, and the bit and sparse indexes on CUDA against the CPU.
+versions, and the bit and sparse indexes on CUDA against the CPU; K2's
+int8 slab equal to its plain version (L1 within ``int8_l1_bound``), and
+the grouped exact engine on the card against the tiled scan.
 Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
 first use) and skips elsewhere.
 
@@ -39,9 +41,9 @@ from pgvector_tpu_torch.ops.fused_topk import (  # noqa: E402
 from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
     MAX_WIDTH, hop_tail, hop_tail_plain)
 from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
-    packed_hop, packed_hop_plain)
+    int8_l1_bound, packed_hop, packed_hop_plain)
 from torch_parity import (  # noqa: E402
-    assert_same_pool, assert_same_topk, packed_hop_case)
+    assert_same_pool, assert_same_topk, int8_hop_case, packed_hop_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -164,9 +166,53 @@ def test_packed_hop_kernel_matches_plain(dev, d, slab, metric, ef, e_sel):
     assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
 
 
+def _assert_int8_hop(a, d1, p1, d0, p0):
+    """K2-int8 against its plain version: L2, inner product and cosine
+    bit for bit; L1 within int8_l1_bound."""
+    metric = a[7]
+    if metric is Metric.L1:
+        atol = int8_l1_bound(d0, a[4].shape[2]).cpu().numpy()
+        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu(), atol=atol,
+                         rtol=0.0)
+    else:
+        assert torch.equal(d1, d0) and torch.equal(p1, p0), metric
+
+
+@pytest.mark.parametrize("d", [33, 128, 960])
+@pytest.mark.parametrize("metric", ["L2", "IP", "COSINE", "L1"])
+@pytest.mark.parametrize("ef,e_sel", [(24, 8), (100, 1), (100, 8)])
+def test_packed_hop_int8_kernel_matches_plain(dev, d, metric, ef, e_sel):
+    """K2's int8 slab against its plain version on seeded hops with -1
+    selections and list slots: 16-byte rows (D 128 and 960) and unaligned
+    ones (D 33), every metric, one to eight slabs a row."""
+    case = int8_hop_case(d + ef + 1, 37, ef, e_sel, d=d, cap=1200)
+    t = [torch.from_numpy(x).to(dev) for x in case]
+    qc, sq, q2 = TD.int8_query(t[5], t[6])
+    a = [*t[:6], ef, Metric[metric], (qc, sq, q2, t[7], t[6])]
+    launches = dict(packed_hop.launches_by_slab)
+    d1, p1 = packed_hop(*a)
+    torch.cuda.synchronize()
+    assert packed_hop.launches_by_slab["int8"] == launches["int8"] + 1
+    assert packed_hop.launches_by_slab["bf16"] == launches["bf16"]
+    d0, p0 = packed_hop_plain(*a)
+    _assert_int8_hop(a, d1, p1, d0, p0)
+
+
+def test_packed_hop_int8_refuses_mixed_inputs(dev):
+    case = int8_hop_case(5, 8, 24, 2, d=32)
+    t = [torch.from_numpy(x).to(dev) for x in case]
+    qc, sq, q2 = TD.int8_query(t[5], t[6])
+    with pytest.raises(ValueError, match="only an int8 slab"):
+        packed_hop(*t[:6], 24, Metric.L2)
+    with pytest.raises(ValueError, match="only an int8 slab"):
+        packed_hop(*t[:4], t[4].float(), t[5], 24, Metric.L2,
+                   (qc, sq, q2, t[7], t[6]))
+
+
 def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
     """K2 against its plain version on every hop state of searches over a
-    graph built on the card, f32 and bf16 slabs."""
+    graph built on the card, f32, bf16 and int8 slabs (int8: equal bit for
+    bit)."""
     from pgvector_tpu_torch.index import hnsw_kernels
 
     rng = np.random.default_rng(9)
@@ -183,14 +229,42 @@ def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
         return packed_hop(*a)
 
     monkeypatch.setattr(hnsw_kernels, "packed_hop", record)
-    for mode in ("f32", "bf16"):
+    for mode in ("f32", "bf16", "int8"):
         monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", mode)
         idx.search(q, 10, ef_search=40)
-    assert len(states) >= 10
+    assert len(states) >= 15
+    assert {a[4].dtype for a in states} == {torch.float32, torch.bfloat16,
+                                            torch.int8}
     for a in states:
         d1, p1 = packed_hop(*a)
         d0, p0 = packed_hop_plain(*a)
-        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+        if a[4].dtype == torch.int8:
+            _assert_int8_hop(a, d1, p1, d0, p0)
+        else:
+            assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric,k", [("L2", 100), ("IP", 100),
+                                      ("COSINE", 10), ("COSINE", 100)])
+def test_grouped_exact_on_card_matches_tiled(dev, dtype, metric, k,
+                                             monkeypatch):
+    """The grouped engine on the card (a filter, deletes) against the
+    tiled scan on the card: the same ids apart from ties."""
+    rng = np.random.default_rng(12)
+    db = rng.normal(size=(30000, 96)).astype(np.float32)
+    q = rng.normal(size=(300, 96)).astype(np.float32)
+    t = DenseTable(96, dtype=dtype, device=dev)
+    t.insert(db)
+    t.delete(np.arange(0, 30000, 7))
+    fmask = rng.random(30000) > 0.2
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "xla")
+    d0, i0 = FlatIndex(t, Metric[metric]).search(q, k, filter_mask=fmask)
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "grouped")
+    flat = FlatIndex(t, Metric[metric])
+    d1, i1 = flat.search(q, k, filter_mask=fmask)
+    assert flat.last_path == "grouped"
+    assert_same_topk(d0, i0, d1, i1)
 
 
 def test_table_defaults_to_the_card(dev):

@@ -1,9 +1,15 @@
 """Exact search through both packages: DenseTable + FlatIndex at 6,000 ×
-32 rows with deleted rows.  L2 and inner product take the port's K1 gate
-(its plain version on the CPU); cosine takes the tiled scan.  The
-reference runs its plain engine (PGVECTOR_TPU_EXACT=xla), as its own
-tests do off TPU.  Tolerance as in test_torch_ops (f32 reassociation)."""
+32 rows with deleted rows.  With the default engine (PGVECTOR_TPU_EXACT
+unset, ``grouped``) L2 and inner product take the port's K1 gate (its
+plain version on the CPU) and cosine the grouped engine, against the
+reference's plain engine (PGVECTOR_TPU_EXACT=xla for its call).  Then the
+grouped engine against the reference's under ``grouped``: L2, inner
+product and cosine over f32, bf16 and f16 tables of 5,000 rows with
+deletes and a filter, at k 10 and at k 100 through the chunked refine;
+and the ``pallas`` and ``xla`` mappings.  Tolerance as in test_torch_ops
+(f32 reassociation)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -20,9 +26,9 @@ from torch_parity import assert_same_topk  # noqa: E402
 
 
 @pytest.mark.parametrize("metric,path", [("L2", "fused"), ("IP", "fused"),
-                                         ("COSINE", "tiled")])
+                                         ("COSINE", "grouped")])
 def test_flat_search_matches_reference(metric, path, monkeypatch):
-    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "xla")
+    monkeypatch.delenv("PGVECTOR_TPU_EXACT", raising=False)
     rng = np.random.default_rng(6)
     db = rng.normal(size=(6000, 32)).astype(np.float32)
     q = rng.normal(size=(20, 32)).astype(np.float32)
@@ -32,7 +38,9 @@ def test_flat_search_matches_reference(metric, path, monkeypatch):
     tt.insert(db)
     jt.delete(dead)
     tt.delete(dead)
-    d0, i0 = JFlat(jt, JMetric[metric]).search(q, 10)
+    with monkeypatch.context() as mp:
+        mp.setenv("PGVECTOR_TPU_EXACT", "xla")
+        d0, i0 = JFlat(jt, JMetric[metric]).search(q, 10)
     flat = FlatIndex(tt, Metric[metric])
     d1, i1 = flat.search(q, 10)
     assert flat.last_path == path
@@ -49,7 +57,7 @@ def test_l2_root_bound_at_a_self_match(dim, monkeypatch):
     squared bound E pass, and moved by 4E fail, at the self-match (root
     sqrt(E)) and at a far row (root E / r): the root tolerance is the
     derivation's, neither looser nor tighter."""
-    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "xla")
+    monkeypatch.delenv("PGVECTOR_TPU_EXACT", raising=False)
     rng = np.random.default_rng(21 + dim)
     db = (rng.normal(size=(5000, dim)) * 2).astype(np.float32)
     pick = np.array([3, 700, 4999])
@@ -57,7 +65,9 @@ def test_l2_root_bound_at_a_self_match(dim, monkeypatch):
     jt, tt = JTable(dim), DenseTable(dim, device="cpu")
     jt.insert(db)
     tt.insert(db)
-    d0, i0 = JFlat(jt, JMetric.L2).search(q, 10)
+    with monkeypatch.context() as mp:
+        mp.setenv("PGVECTOR_TPU_EXACT", "xla")
+        d0, i0 = JFlat(jt, JMetric.L2).search(q, 10)
     flat = FlatIndex(tt, Metric.L2)
     d1, i1 = flat.search(q, 10)
     assert flat.last_path == "fused"
@@ -77,6 +87,86 @@ def test_l2_root_bound_at_a_self_match(dim, monkeypatch):
         over[:, pos] = np.sqrt(r[:, pos] ** 2 + 4 * e[:, pos])
         with pytest.raises(AssertionError, match="beyond their bound"):
             assert_same_topk(d0, i0, over, i0, atol=atol, rtol=0.0)
+
+
+_DTYPES = {"f32": (np.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16),
+           "f16": (np.float16, torch.float16)}
+
+
+@pytest.fixture(scope="module")
+def grouped_data():
+    rng = np.random.default_rng(31)
+    db = rng.normal(size=(5000, 32)).astype(np.float32)
+    db[17] = 0.0  # a zero row: +inf for cosine in both
+    q = rng.normal(size=(12, 32)).astype(np.float32)
+    dead = rng.choice(5000, size=400, replace=False)
+    fmask = rng.random(5000) > 0.3
+    return db, q, dead, fmask
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
+def test_grouped_matches_reference(grouped_data, metric, dtype, k,
+                                   monkeypatch):
+    """The port's default engine against the reference's grouped engine:
+    K1 inside its gate (f32 L2/IP at k 10), the grouped engine for the
+    rest.  At k 100 the port's refine is chunked (REFINE_BYTES cut to 64
+    candidates a chunk, 25 chunks) and the reference's is whole: the
+    running merge is exact, so both give the same top-k."""
+    import pgvector_tpu_torch.ops.topk as TK
+
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "grouped")
+    db, q, dead, fmask = grouped_data
+    jdt, tdt = _DTYPES[dtype]
+    jt, tt = JTable(32, dtype=jdt), DenseTable(32, dtype=tdt, device="cpu")
+    jt.insert(db)
+    tt.insert(db)
+    jt.delete(dead)
+    tt.delete(dead)
+    if k == 100:
+        monkeypatch.setattr(TK, "REFINE_BYTES", len(q) * 32 * 4 * 64)
+    ref, flat = JFlat(jt, JMetric[metric]), FlatIndex(tt, Metric[metric])
+    for f in (None, fmask):
+        d0, i0 = ref.search(q, k, filter_mask=f)
+        d1, i1 = flat.search(q, k, filter_mask=f)
+        assert ref.last_path == "grouped"
+        fused = metric != "COSINE" and dtype == "f32" and k <= 64
+        assert flat.last_path == ("fused" if fused else "grouped")
+        assert_same_topk(d0, i0, d1, i1)
+        assert not np.isin(i1, dead).any()
+        if f is not None:
+            assert f[i1[i1 >= 0]].all()
+
+
+@pytest.mark.parametrize("mode,case,path", [
+    ("pallas", ("L2", 10, 5000), "fused"),
+    ("pallas", ("L2", 100, 5000), "tiled"),
+    ("pallas", ("COSINE", 10, 5000), "tiled"),
+    ("xla", ("L2", 10, 5000), "tiled"),
+    ("xla", ("COSINE", 100, 5000), "tiled"),
+    ("grouped", ("L2", 10, 5000), "fused"),
+    ("grouped", ("L2", 100, 5000), "grouped"),
+    ("grouped", ("L1", 10, 5000), "tiled"),
+    ("grouped", ("COSINE", 10, 4095), "tiled"),
+])
+def test_exact_mode_routes(grouped_data, mode, case, path, monkeypatch):
+    """``pallas`` is K1 inside its gate and the tiled scan outside it,
+    ``xla`` always the tiled scan; ``grouped`` leaves L1 and tables under
+    4,096 rows to the tiled scan.  Every route gives the tiled scan's
+    top-k."""
+    metric, k, n = case
+    db, q, _, _ = grouped_data
+    tt = DenseTable(32, device="cpu")
+    tt.insert(db[:n])
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", "xla")
+    d0, i0 = FlatIndex(tt, Metric[metric]).search(q, k)
+    monkeypatch.setenv("PGVECTOR_TPU_EXACT", mode)
+    flat = FlatIndex(tt, Metric[metric])
+    d1, i1 = flat.search(q, k)
+    assert flat.last_path == path
+    assert_same_topk(d0, i0, d1, i1)
 
 
 def test_table_without_device_needs_a_card(monkeypatch):

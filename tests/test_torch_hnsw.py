@@ -4,7 +4,7 @@
   3,000 × 16 set, m=8, efc=32, wave 256, beam_expand=4, dedup=False);
   ``hnsw_from_numpy`` carries exactly the arrays and manifest fields that
   ``io.checkpoint.save_hnsw`` writes into the port, and both search it.
-  Packed f32 and bf16 scans (the reference with its Pallas tail in
+  Packed f32, bf16 and int8 scans (the reference with its Pallas tail in
   interpret mode, the port with K2's plain version) and the row-gather
   scan must return the same ids apart from ties at equal distance, with
   distances within rtol 1e-5, after the same number of layer-0 hops.
@@ -63,7 +63,7 @@ def _recall(r, gt):
                     for a, b in zip(r, gt)])
 
 
-@pytest.mark.parametrize("packed", ["f32", "bf16", "off"])
+@pytest.mark.parametrize("packed", ["f32", "bf16", "int8", "off"])
 def test_search_on_reference_graph_matches(graphs, packed, monkeypatch):
     monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", packed)
     monkeypatch.setenv("PGVECTOR_TPU_VISITED", "off")
@@ -72,6 +72,7 @@ def test_search_on_reference_graph_matches(graphs, packed, monkeypatch):
     port = graphs["port"]
     assert port._packed_plan() == {"f32": torch.float32,
                                    "bf16": torch.bfloat16,
+                                   "int8": torch.int8,
                                    "off": None}[packed]
     d1, r1 = port.search(graphs["q"], K, ef_search=EF)
     assert_same_topk(d0, r0, d1, r1, atol=1e-6, rtol=1e-5)

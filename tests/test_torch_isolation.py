@@ -1,8 +1,10 @@
 """The port stands alone: with ``jax`` made unimportable, importing
 ``pgvector_tpu_torch`` and running 2,000-row HNSW and IVFFlat builds and
-searches on the CPU, a binary-quantized index, bit IVFFlat, a sparse HNSW
-index, with checkpoint round trips, succeeds, and neither ``jax`` nor
-``pgvector_tpu`` is loaded."""
+searches on the CPU (HNSW also through the int8 packed tier), a
+binary-quantized index, bit IVFFlat, a sparse HNSW index, the grouped
+exact engine over a bf16 table, the value types' text and binary I/O and
+aggregates, with checkpoint round trips, succeeds, and neither ``jax``
+nor ``pgvector_tpu`` is loaded."""
 
 import os
 import subprocess
@@ -32,6 +34,23 @@ _SCRIPT = textwrap.dedent("""
     assert (r[:, 0] == np.arange(5)).all(), r
     d, r = P.FlatIndex(table, P.Metric.L2).search(db[:5], 3)
     assert (r[:, 0] == np.arange(5)).all(), r
+    import os
+    os.environ["PGVECTOR_TPU_PACKED_SCAN"] = "int8"
+    d, r = idx.search(db[:5], 3, ef_search=32)
+    assert idx._nbr_vals.dtype == torch.int8, idx._nbr_vals.dtype
+    assert (r[:, 0] == np.arange(5)).all(), r
+    del os.environ["PGVECTOR_TPU_PACKED_SCAN"]
+    half = P.DenseTable(8, dtype=torch.bfloat16, device="cpu")
+    half.insert(rng.normal(size=(5000, 8)).astype(np.float32))
+    flat = P.FlatIndex(half, P.Metric.COSINE)
+    d, r = flat.search(db[:3], 5)
+    assert flat.last_path == "grouped" and (r >= 0).all(), (flat.last_path, r)
+    v = P.Vector.from_text("[1,2.5,-3]")
+    assert P.Vector.from_binary(v.to_binary()) == v == P.avg([v, v])
+    h = P.HalfVec.from_text("[1,65504]")
+    assert P.HalfVec.from_binary(h.to_binary()).to_text() == "[1,65504]"
+    s = P.SparseVec.from_text("{2:1.5}/3")
+    assert P.SparseVec.from_binary(s.to_binary()).to_text() == "{2:1.5}/3"
 
     import tempfile
     from pgvector_tpu_torch.io import checkpoint

@@ -1,9 +1,9 @@
 """The ``sparsevec`` type through both packages, on the CPU.
 
 - ``SparseVec``: the reference's constructor checks and messages, the
-  dense conversions, the scalar distances, norms and ordering, equal to
-  the reference's; text and binary I/O raise FeatureNotSupported until the
-  scanner is ported.
+  dense conversions, the scalar distances, norms, ordering and text and
+  binary I/O, equal to the reference's (tests/test_torch_types.py holds
+  the golden cases).
 - ``sparse_scores`` / ``sparse_scores_batch`` for all four metrics, the
   HNSW scorers (densified-query and merge join) and pairwise blocks
   (densified and merge join), against the reference within atol 1e-5.
@@ -108,12 +108,11 @@ def test_sparsevec_values_match_reference():
     n = SparseVec(5, [0, 1], [3, 4]).l2_normalize()
     np.testing.assert_array_equal(n.values, np.float32([0.6, 0.8]))
     assert SparseVec(5, [], []).l2_normalize().nnz == 0
-    with pytest.raises(FeatureNotSupported):
-        s.to_text()
-    with pytest.raises(FeatureNotSupported):
-        SparseVec.from_text("{1:1}/5")
-    with pytest.raises(FeatureNotSupported):
-        SparseVec.from_binary(b"")
+    js = JSparseVec.from_dense(d)
+    assert s.to_text() == js.to_text() == "{2:1.5,4:-2}/5"
+    assert SparseVec.from_text("{1:1}/5") == SparseVec(5, [0], [1])
+    assert s.to_binary() == js.to_binary()
+    assert SparseVec.from_binary(js.to_binary()) == s
     with pytest.raises(DataException, match="dimensions 5 and 6"):
         s.l2_distance(SparseVec(6, [1], [1]))
     # ordering as if dense (test/sql/sparsevec.sql)

@@ -93,6 +93,21 @@ def packed_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
     return pool_d, pool_p, sel.reshape(-1), nbr0, vals, qs
 
 
+def int8_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
+    """:func:`packed_hop_case` with the slab quantized as the int8 tier
+    quantizes it (per-dim scale max|v| / 127, round half to even) and
+    seeded element norms: (pool_d, pool_p, sel_flat, nbr0, int8 slab, qs,
+    scale, pnorm2)."""
+    pool_d, pool_p, sel, nbr0, vals, qs = packed_hop_case(
+        seed, q, ef, e_sel, m2=m2, d=d, cap=cap)
+    scale = (np.maximum(np.abs(vals).max(axis=(0, 1)), np.float32(1e-30))
+             / np.float32(127.0)).astype(np.float32)
+    q8 = np.clip(np.round(vals / scale), -127, 127).astype(np.int8)
+    pnorm2 = np.random.default_rng(seed + 1).uniform(
+        0.5 * d, 2.0 * d, size=cap).astype(np.float32)
+    return pool_d, pool_p, sel, nbr0, q8, qs, scale, pnorm2
+
+
 def assert_same_pool(d_ref, p_ref, d_got, p_got, atol=ATOL, rtol=RTOL):
     """Two hop results agree: (distance, id) lists as top-k lists, and the
     expanded flags wherever the ids agree."""
