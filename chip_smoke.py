@@ -41,6 +41,18 @@ scan), an HNSW build, searches at ef 40 and 100 over the bf16 slab that
 version on hop states of that graph (equal bit for bit for L2 and inner
 product), and the ``auto`` pick for 1M × 960 on this card (int8).
 
+Phase 10 runs after phase 7, on the same table through the Relation
+that built phase 4's index (``Relation.create_index``): IVFFlat (lists
+1,000) and btree indexes, EXPLAIN and the calibrated planner, ``knn``
+through the exact scan (K1, equal to its ground truth), HNSW at ef 40
+(K2 once a hop) and IVFFlat at probes 10 against phase 7's floors,
+EXPLAIN ANALYZE, btree lookups against numpy, the batching executor with
+8 clients and a 1,000-row insert amid their reads (each read equal to
+the index's search on the state its queue position sees), COPY through
+the native codec and a replica rebuilt from a base checkpoint and the
+replication log (table, graph and results equal bit for bit), and the
+device-memory counts beside ``torch.cuda.memory_allocated``.
+
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
 kernel, plain and library times at the main path's shapes, and the
@@ -1534,6 +1546,410 @@ def _wave_row(name, p, row_bytes, op_width, rate, c):
             "top_kernels_ms": p["top_ms"]}
 
 
+def relation_phase(rel, qs, k, floors, ivf_floor, smi):
+    """Phase 10: the SQL-facing surface on the main path's Relation (the
+    churned table and its live HNSW index), as a pgvector user drives it:
+    CREATE INDEX of IVFFlat and btree, EXPLAIN, the calibrated planner,
+    ORDER BY ... LIMIT 10 through the exact scan (K1), HNSW (K2) and
+    IVFFlat, EXPLAIN ANALYZE, btree lookups, the batching executor with a
+    write amid its reads, COPY in and out through the native codec, and a
+    replica rebuilt from a base checkpoint and the replication log.
+    Returns the phase's launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from torch_parity import assert_same_topk
+    from pgvector_tpu_torch import (DenseTable, FlatIndex, Metric, Relation,
+                                    config, native)
+    from pgvector_tpu_torch.io import checkpoint as ck
+    from pgvector_tpu_torch.io import copy as pcopy
+    from pgvector_tpu_torch.io.replication import ReplicationLog, apply_deltas
+    from pgvector_tpu_torch.ops.fused_topk import fused_topk
+    from pgvector_tpu_torch.ops.hop_tail import hop_tail
+    from pgvector_tpu_torch.ops.packed_hop import packed_hop
+    from pgvector_tpu_torch.planner import calibrate, choose_path
+    from pgvector_tpu_torch.runtime import BatchingExecutor
+    from pgvector_tpu_torch.utils.telemetry import (
+        hnsw_hbm_bytes, ivfflat_hbm_bytes, table_hbm_bytes)
+
+    t_phase = time.perf_counter()
+    table, hnsw = rel.table, rel.indexes[0]
+    dev, nq, d = table.device, len(qs), table.dim
+    rng = np.random.default_rng(10)
+    check(native.available(), "the native codec built")
+    out = {"phase": "relation", "nvidia_smi": smi, "n": table.count,
+           "queries": nq, "k": k}
+    fused_topk.launches = packed_hop.launches = hop_tail.launches = 0
+    hops = [0]  # layer-0 hops of every HNSW search of the phase
+
+    def count_hops(index):
+        """Add each search's layer-0 hops to ``hops`` (the executor's
+        batches run on its own thread, the calibration's inside it)."""
+        search = index.search
+
+        def counted(*a, **kw):
+            r = search(*a, **kw)
+            hops[0] += index._last_scan_steps
+            return r
+        index.search = counted
+
+    def hnsw_call(fn):
+        """Run ``fn`` (searches of phase 4's graph) and check that each of
+        their layer-0 hops was one K2 launch."""
+        l0, h0 = packed_hop.launches, hops[0]
+        res = fn()
+        check(packed_hop.launches - l0 == hops[0] - h0,
+              f"K2 launched {packed_hop.launches - l0} times for "
+              f"{hops[0] - h0} hops")
+        return res
+
+    count_hops(hnsw)
+
+    def recall_of(r, gt):
+        return sum(len(set(a[a >= 0].tolist()) & set(b[b >= 0].tolist()))
+                   for a, b in zip(r, gt)) / max(int((gt >= 0).sum()), 1)
+
+    def timed(fn, reps=3):
+        """The first run's result and every run's seconds (the searches
+        return numpy arrays, so each ends in a device sync)."""
+        res, secs = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            secs.append(time.perf_counter() - t0)
+            res = r if res is None else res
+        return res, secs
+
+    # ---- 10.1 indexes and the planner -----------------------------------
+    t0 = time.perf_counter()
+    ivf = rel.create_index("ivfflat", Metric.L2, lists=1000, seed=1)
+    torch.cuda.synchronize()
+    ivf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bt = rel.create_index("btree")
+    btree_s = time.perf_counter() - t0
+    plan = rel.explain(Metric.L2)
+    tuple_pick = choose_path(table, rel.indexes, Metric.L2)
+    first = plan.splitlines()[0]
+    check(tuple_pick.index is not None and "<-- chosen" in plan
+          and first.startswith("Seq Scan") and "chosen" not in first,
+          f"the tuple model picks an index at {table.count} rows:\n{plan}")
+    t0 = time.perf_counter()
+    with config.local(**{"hnsw.ef_search": 40, "ivfflat.probes": 10}):
+        cal = hnsw_call(lambda: calibrate(table, rel.indexes, Metric.L2, qs,
+                                          k=k, sizes=(32, 256)))
+        cal_pick = choose_path(table, rel.indexes, Metric.L2,
+                               calibration=cal, q_count=nq)
+        # the reference's fit, through the probe sizes alone (the port's
+        # also times all the queries it is given): printed, not used
+        probe = calibrate(table, rel.indexes, Metric.L2, qs[:256], k=k,
+                          sizes=(32, 256))
+        probe_pick = choose_path(table, rel.indexes, Metric.L2,
+                                 calibration=probe, q_count=nq)
+    calibrate_s = time.perf_counter() - t0
+    names = {id(hnsw): "hnsw", id(ivf): "ivfflat", "exact": "exact"}
+    constants = {names[key]: {"fixed_s": c[0], "per_query_s": c[1],
+                              "predicted_s": cal.predict(key, nq),
+                              "probe_fit_predicted_s":
+                                  probe.predict(key, nq)}
+                 for key, c in cal.constants.items()}
+
+    # ---- 10.2 knn through each path --------------------------------------
+    flat = FlatIndex(table, Metric.L2)
+    k1_before = fused_topk.launches
+    gt_d, gt = flat.search(qs, k)
+    check(flat.last_path == "fused" and fused_topk.launches > k1_before,
+          "the ground truth went through K1")
+    paths = {}
+    k1_before = fused_topk.launches
+    (ed, ei), secs = timed(lambda: rel.knn(qs, k, use_index=False))
+    check(fused_topk.launches > k1_before, "knn(use_index=False) launched K1")
+    check(np.array_equal(ei, gt) and np.array_equal(ed, gt_d),
+          "knn(use_index=False) equals K1's ground truth")
+    paths["exact"] = {"s": secs, "qps": nq / min(secs),
+                      "k1_launches": fused_topk.launches - k1_before}
+    check(choose_path(table, rel.indexes, Metric.L2, ef_search=40).index
+          is hnsw, "the planner picks HNSW at ef 40")
+    (hd, hi), secs = timed(lambda: hnsw_call(
+        lambda: rel.knn(qs, k, ef_search=40)))
+    rec = recall_of(hi, gt)
+    check(hi.shape == (nq, k) and np.isfinite(hd).all(), "finite HNSW results")
+    check(rec >= floors[40], f"HNSW recall@10 {rec} >= {floors[40]} at ef 40")
+    paths["hnsw"] = {"ef": 40, "s": secs, "qps": nq / min(secs),
+                     "recall_at_10": rec, "floor": floors[40],
+                     "layer0_hops": hnsw._last_scan_steps}
+    only_ivf = Relation(table)  # the same table with the IVF path alone
+    only_ivf.indexes = [ivf]
+    check(choose_path(table, only_ivf.indexes, Metric.L2, probes=10).index
+          is ivf, "the planner picks IVFFlat when it is the index")
+    (vd, vi), secs = timed(lambda: only_ivf.knn(qs, k, probes=10))
+    rec = recall_of(vi, gt)
+    check(vi.shape == (nq, k) and np.isfinite(vd).all(), "finite IVF results")
+    check(rec >= ivf_floor, f"IVF recall@10 {rec} >= {ivf_floor} at probes 10")
+    paths["ivfflat"] = {"probes": 10, "s": secs, "qps": nq / min(secs),
+                        "recall_at_10": rec, "floor": ivf_floor,
+                        "route": ivf.last_path}
+    analyze = hnsw_call(lambda: rel.explain(Metric.L2, analyze=True,
+                                            q=qs[0], k=k, ef_search=40))
+    check("Index Searches: 1" in analyze and f"Rows Returned: {k}" in analyze,
+          f"EXPLAIN ANALYZE:\n{analyze}")
+    best = {p: min(v["s"]) for p, v in paths.items()}
+    spread = max(max(v["s"]) / min(v["s"]) for v in paths.values())
+    fastest = min(best, key=best.get)
+    out.update(ivf_build_s=ivf_s, btree_build_s=btree_s, explain=plan,
+               tuple_pick=tuple_pick.kind, calibrate_s=calibrate_s,
+               calibration=constants, calibrated_pick=cal_pick.kind,
+               probe_fit_pick=probe_pick.kind,
+               fastest=fastest, spread=spread, paths=paths,
+               explain_analyze=analyze)
+
+    # ---- 10.3 btree ------------------------------------------------------
+    live = np.flatnonzero(table.valid[: table.count].cpu().numpy())
+    host = table.data[: table.count].cpu().numpy()
+    pick = rng.choice(live, 1000, replace=False)
+    t0 = time.perf_counter()
+    found = [bt.search_eq(host[r]) for r in pick]
+    eq_s = time.perf_counter() - t0
+    for r, got in zip(pick, found):
+        check(r in got and (host[got] == host[r]).all(),
+              f"search_eq finds row {r} and only rows equal to it")
+    order = np.argsort(host[live, 0], kind="stable")
+    lo_row = live[order[len(order) * 2 // 5]]
+    hi_row = live[order[len(order) * 3 // 5]]
+
+    def cmp(x, v):
+        """Each row of x against v in the element-by-element order."""
+        ne = x != v
+        j = np.argmax(ne, axis=1)
+        return np.where(ne.any(axis=1),
+                        np.sign(x[np.arange(len(x)), j] - v[j]), 0)
+
+    t0 = time.perf_counter()
+    rows = bt.search_range(host[lo_row], host[hi_row])
+    range_s = time.perf_counter() - t0
+    xs = host[live]
+    want = live[(cmp(xs, host[lo_row]) >= 0) & (cmp(xs, host[hi_row]) <= 0)]
+    check(len(rows) == len(want) and np.array_equal(np.sort(rows), want),
+          f"search_range returned {len(rows)} rows, numpy {len(want)}")
+    out["btree"] = {"build_s": btree_s, "eq_lookups": len(pick),
+                    "eq_s": eq_s, "range_rows": int(len(rows)),
+                    "range_s": range_s}
+    del xs, want
+
+    # ---- 10.4 the batching executor ---------------------------------------
+    new_vecs = (host[rng.choice(live, 1000, replace=False)]
+                + rng.normal(0, 0.01, (1000, d)).astype(np.float32))
+    pre_d, pre_i = hnsw_call(lambda: hnsw.search(qs, k, ef_search=40))
+    ex = BatchingExecutor(hnsw, max_batch=256, max_wait_ms=2, ef_search=40)
+    lock = threading.Lock()
+    seq, lat, res, counter, done, errors = {}, {}, {}, [0], [0], []
+
+    def client(c):
+        """One client: its queries one at a time, each awaited."""
+        try:
+            for j in range(c, nq, 8):
+                t0 = time.perf_counter()
+                with lock:  # the queue order, recorded as it is made
+                    fut = ex.submit(qs[j], k)
+                    seq[j] = counter[0]
+                    counter[0] += 1
+                res[j] = fut.result(timeout=120)
+                lat[j] = time.perf_counter() - t0
+                with lock:
+                    done[0] += 1
+        except Exception as exc:  # raised by the check below
+            errors.append(exc)
+
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    l0, h0 = packed_hop.launches, hops[0]
+    t0 = time.perf_counter()
+    try:
+        for th in clients:
+            th.start()
+        while True:  # the write, once half the reads are answered
+            with lock:
+                if done[0] >= nq // 2 or errors:
+                    w_seq = counter[0]
+                    wfut = ex.submit_write(lambda ix: rel.insert(new_vecs))
+                    counter[0] += 1
+                    break
+            time.sleep(0.001)
+        new_rows = wfut.result(timeout=600)
+        for th in clients:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        ex.shutdown()
+    check(not errors, f"executor clients failed: {errors[:1]}")
+    check(packed_hop.launches - l0 == hops[0] - h0,
+          f"the executor's batches: {packed_hop.launches - l0} K2 launches "
+          f"for {hops[0] - h0} hops")
+    check(not ex._thread.is_alive()
+          and not any(th.is_alive() for th in clients),
+          "the executor and its clients stopped")
+    post_d, post_i = hnsw_call(lambda: hnsw.search(qs, k, ef_search=40))
+    pre = np.array(sorted(j for j in res if seq[j] < w_seq))
+    post = np.array(sorted(j for j in res if seq[j] > w_seq))
+    check(len(pre) + len(post) == nq and len(pre) and len(post),
+          f"{len(pre)} reads before the write, {len(post)} after")
+    for js, (rd, ri) in ((pre, (pre_d, pre_i)), (post, (post_d, post_i))):
+        assert_same_topk(rd[js], ri[js], np.stack([res[j][0] for j in js]),
+                         np.stack([res[j][1] for j in js]))
+    lat_ms = np.array([lat[j] for j in range(nq)]) * 1e3
+    out["executor"] = {
+        "clients": 8, "max_batch": 256, "max_wait_ms": 2, "ef": 40,
+        "reads_before_write": int(len(pre)),
+        "reads_after_write": int(len(post)), "inserted": int(len(new_rows)),
+        "wall_s": wall, "qps": nq / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99))}
+
+    # ---- 10.5 COPY and replication ----------------------------------------
+    tmp = tempfile.mkdtemp(prefix="pgvt_smoke_")
+    try:
+        t0 = time.perf_counter()
+        ck.save_table(table, tmp + "/t")
+        ck.save_hnsw(hnsw, tmp + "/h")
+        ck.save_ivfflat(ivf, tmp + "/i")
+        base_s = time.perf_counter() - t0
+        rel.replication_log = ReplicationLog(tmp + "/log")
+        src = DenseTable(d, device=dev)
+        src.insert(host[rng.choice(live, 1000, replace=False)]
+                   + rng.normal(0, 0.01, (1000, d)).astype(np.float32))
+        t0 = time.perf_counter()
+        ins = pcopy.copy_in_binary(rel, pcopy.copy_out_binary(src))
+        torch.cuda.synchronize()
+        dml = {"copy_insert_s": time.perf_counter() - t0}
+        live = np.flatnonzero(table.valid[: table.count].cpu().numpy())
+        t0 = time.perf_counter()
+        rel.delete(rng.choice(live, 1000, replace=False))
+        dml["delete_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rel.vacuum()
+        torch.cuda.synchronize()
+        dml["vacuum_s"] = time.perf_counter() - t0
+        rel.replication_log = None
+        t0 = time.perf_counter()
+        rt = ck.load_table(tmp + "/t", device=dev)
+        replica = Relation(rt)
+        replica.indexes = [ck.load_hnsw(rt, tmp + "/h"),
+                           ck.load_ivfflat(rt, tmp + "/i")]
+        rbt = replica.create_index("btree")
+        rh, ri = replica.indexes[:2]
+        count_hops(rh)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        applied = apply_deltas(rt, replica.indexes, tmp + "/log")
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        check(applied == 3, f"the log holds 3 records ({applied})")
+        n_rows, n_el = table.count, hnsw.n_elems
+        check(rt.count == n_rows
+              and torch.equal(rt.data[:n_rows], table.data[:n_rows])
+              and torch.equal(rt.valid[:n_rows], table.valid[:n_rows]),
+              "the replica's table equals the primary's")
+        check(rh.n_elems == n_el
+              and torch.equal(rh.nbr0[:n_el], hnsw.nbr0[:n_el]),
+              "the replica's nbr0 equals the primary's")
+        check(rbt._rows == bt._rows, "the replica's btree equals the "
+              "primary's")
+        pd_, pi_ = hnsw_call(lambda: rel.knn(qs, k, ef_search=40))
+        rd_, ri_ = hnsw_call(lambda: replica.knn(qs, k, ef_search=40))
+        check(np.array_equal(pi_, ri_) and np.array_equal(pd_, rd_),
+              "the replica's HNSW knn equals the primary's bit for bit")
+        only_r = Relation(rt)
+        only_r.indexes = [ri]
+        pd_, pi_ = only_ivf.knn(qs, k, probes=10)
+        rd_, ri_ = only_r.knn(qs, k, probes=10)
+        check(np.array_equal(pi_, ri_) and np.array_equal(pd_, rd_),
+              "the replica's IVFFlat knn equals the primary's bit for bit")
+        out["replication"] = {
+            "base_save_s": base_s, "records": applied,
+            "copy_inserted": int(len(ins)), "deleted": 1000, **dml,
+            "replica_load_s": load_s, "replay_s": replay_s,
+            "table_equal": True, "nbr0_equal": True,
+            "knn_equal_ef40": True, "knn_equal_probes10": True}
+        del replica, only_r, rt, rh, ri, rbt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # COPY of the whole table in binary, and of 100,000 rows in text
+    live = np.flatnonzero(table.valid[: table.count].cpu().numpy())
+    t0 = time.perf_counter()
+    blob = pcopy.copy_out_binary(table)
+    out_s = time.perf_counter() - t0
+    rows_host = table.data[: table.count].cpu().numpy()[live]
+    check(blob[17:] == native.encode_binary(rows_host),
+          "copy_out_binary's rows are native.encode_binary's bytes")
+    back = DenseTable(d, capacity=len(live), device=dev)
+    t0 = time.perf_counter()
+    pcopy.copy_in_binary(back, blob)
+    torch.cuda.synchronize()
+    in_s = time.perf_counter() - t0
+    check(back.count == len(live) and torch.equal(
+        back.data[: back.count],
+        table.data[torch.as_tensor(live, device=dev)]),
+        "the binary round trip gives the live rows back")
+    del back
+    n_text = min(100_000, len(live))
+    part = DenseTable(d, capacity=n_text, device=dev)
+    part.insert(rows_host[:n_text])
+    t0 = time.perf_counter()
+    lines = pcopy.copy_out_text(part)
+    tout_s = time.perf_counter() - t0
+    text_bytes = sum(len(l) + 1 for l in lines)
+    again = DenseTable(d, capacity=n_text, device=dev)
+    t0 = time.perf_counter()
+    pcopy.copy_in_text(again, lines)
+    torch.cuda.synchronize()
+    tin_s = time.perf_counter() - t0
+    check(torch.equal(again.data[:n_text], part.data[:n_text]),
+          "the text round trip gives the rows back bit for bit")
+    out["copy"] = {
+        "native": native.available(), "binary_rows": int(len(live)),
+        "binary_bytes": len(blob), "binary_out_s": out_s,
+        "binary_in_s": in_s, "binary_out_mb_s": len(blob) / out_s / 1e6,
+        "binary_in_mb_s": len(blob) / in_s / 1e6, "text_rows": n_text,
+        "text_bytes": text_bytes, "text_out_s": tout_s, "text_in_s": tin_s,
+        "text_out_mb_s": text_bytes / tout_s / 1e6,
+        "text_in_mb_s": text_bytes / tin_s / 1e6}
+    del blob, lines, part, again, rows_host, host
+
+    # ---- 10.6 device-memory accounting -------------------------------------
+    tb = table_hbm_bytes(table)
+    check(tb == table.capacity * (d * 4 + 1) and tb >= table.count * d * 4,
+          f"table bytes {tb} for {table.count} rows of {d} f32")
+    out["hbm"] = {"table": tb, "hnsw": hnsw_hbm_bytes(hnsw),
+                  "hnsw_with_slab": hnsw_hbm_bytes(hnsw, slab=True),
+                  "ivfflat": ivfflat_hbm_bytes(ivf),
+                  "memory_allocated": torch.cuda.memory_allocated(),
+                  "table_rows": table.count,
+                  "table_capacity": table.capacity}
+    launches = {"fused_topk": fused_topk.launches,
+                "packed_hop": packed_hop.launches,
+                "hop_tail": hop_tail.launches}
+    del hnsw.search  # the counting wrapper
+    check(launches["fused_topk"] > 0 and launches["packed_hop"] == hops[0],
+          f"K1 launched, and K2 once a layer-0 hop ({hops[0]}), in phase "
+          f"10: {launches}")
+    out.update(launches=launches, layer0_hops=hops[0],
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    # last, once the numbers that explain it are out: the calibrated pick
+    check(best[cal_pick.kind] <= best[fastest] * spread,
+          f"the calibrated pick {cal_pick.kind} ({best[cal_pick.kind]} s) "
+          f"is within the timed runs' spread {spread} of the fastest, "
+          f"{fastest} ({best[fastest]} s)")
+    return launches
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1562,7 +1978,7 @@ def main():
 
     from bench import make_data
     from torch_parity import ATOL, RTOL, assert_same_pool, assert_same_topk
-    from pgvector_tpu_torch import DenseTable, FlatIndex, HNSWIndex, Metric
+    from pgvector_tpu_torch import DenseTable, FlatIndex, Metric, Relation
     from pgvector_tpu_torch.ops import _cuda
     from pgvector_tpu_torch.ops.fused_topk import (
         fused_topk, fused_topk_plain, k1_error_bound, k1_l2_error_bound,
@@ -1729,8 +2145,9 @@ def main():
         cap *= 2
     timers.enabled = True  # host-clock split of the build's phases
     t0 = time.perf_counter()
-    idx = HNSWIndex(table, Metric.L2, m=16, ef_construction=64,
-                    wave_size=1024, beam_expand=4, capacity=cap)
+    rel = Relation(table)  # CREATE INDEX ... USING hnsw (phase 10 adds more)
+    idx = rel.create_index("hnsw", Metric.L2, m=16, ef_construction=64,
+                           wave_size=1024, beam_expand=4, capacity=cap)
     build_s = time.perf_counter() - t0
     timers.enabled = False
     idx.beam_expand = 8  # query-side beam, as bench.py:518
@@ -1839,14 +2256,21 @@ def main():
     ivf_phase(table, qs, gt_d, gt, k, smi)
 
     # ---- 7. the HNSW index as a live index (it changes the table) --------
-    live_phase(idx, table, qs, k, {s["ef"]: s["recall_at_10"] for s in sweep},
-               smi)
+    recall4 = {s["ef"]: s["recall_at_10"] for s in sweep}
+    live_phase(idx, table, qs, k, recall4, smi)
+
+    # ---- 10. the SQL-facing surface on phase 4's Relation ----------------
+    # after the churn, on the live index: phase 7's floors (0.02 under
+    # phase 4's recall) and phase 6's at probes 10 (the 1M lane's)
+    launches10 = relation_phase(
+        rel, qs, k, {ef: r - 0.02 for ef, r in recall4.items()},
+        0.99 if args.n == 1_000_000 else 0.0, smi)
 
     # ---- 8. the bit and sparse types, on tables of their own -------------
     # free phase 4's index with its slab cache (the captured hop states
-    # hold it too) and the churned table first
+    # hold it too), phase 10's indexes and the churned table first
     idx._nbr_vals = None
-    del idx, table, flat, data, sq, qs_dev, states, st, pd, pi, b, b_user
+    del rel, idx, table, flat, data, sq, qs_dev, states, st, pd, pi, b, b_user
     gc.collect()
     torch.cuda.empty_cache()
     bit_rows = bit_sparse_phase(db, qs, k, smi, args.n, dev)
@@ -1858,7 +2282,10 @@ def main():
         {"name": "fused_topk", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/fused_topk.cu",
          "replaces": "pgvector_tpu/ops/pallas_topk.py:95",
-         "launches": launches["fused_topk"], "on_main_path": True,
+         "launches": launches["fused_topk"] + launches10["fused_topk"],
+         "launches_by_phase": {"4": launches["fused_topk"],
+                               "10": launches10["fused_topk"]},
+         "on_main_path": True,
          "max_abs_err": max(c["max_abs_err"] for c in k1),
          "ms": k1[0]["ms"], "plain_ms": k1[0]["plain_ms"],
          "bound_ms": k1_bound, "bound_by": k1_by,
@@ -1867,14 +2294,18 @@ def main():
         {"name": "packed_hop", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
          "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
-         "launches": launches["packed_hop"], "on_main_path": True,
+         "launches": launches["packed_hop"] + launches10["packed_hop"],
+         "launches_by_phase": {"4": launches["packed_hop"],
+                               "10": launches10["packed_hop"]},
+         "on_main_path": True,
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "hop_tail", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/hop_tail.cu",
          "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
-         "launches": launches["hop_tail"], "on_main_path": False,
+         "launches": launches["hop_tail"] + launches10["hop_tail"],
+         "on_main_path": False,
          "max_abs_err": max(c["max_abs_err"] for c in k2_tail),
          "ms": k2_tail[-1]["ms"], "plain_ms": k2_tail[-1]["plain_ms"],
          "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None},

@@ -7,10 +7,12 @@ on torch tensors: the value types (``vector``, ``halfvec``, ``sparsevec``,
 caller names, such as ``"cpu"``), exact search (K1 inside its gate, the
 grouped engine, the tiled scan), HNSW (packed f32, bf16 or int8 slabs),
 IVFFlat (dense and bit), the re-ranking pipelines (binary quantization,
-subvectors, expression indexes), and checkpoints in the JAX package's
-directory format, with the JAX package's two Pallas kernels as
-hand-written CUDA kernels for Hopper (``csrc/``; built with ``nvcc`` at
-first use):
+subvectors, expression indexes), checkpoints in the JAX package's
+directory format, and the SQL-facing surface (:class:`Relation` with the
+planner, the btree index, COPY through the native codec, the replication
+log, the batching executor and the SQL functions), with the JAX
+package's two Pallas kernels as hand-written CUDA kernels for Hopper
+(``csrc/``; built with ``nvcc`` at first use):
 
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
   (3xTF32 on the tensor cores)
@@ -67,6 +69,7 @@ from .store.table import BitTable, DenseTable, SparseTable  # noqa: E402
 from .index.flat import FlatIndex  # noqa: E402
 from .index.hnsw import HNSWIndex  # noqa: E402
 from .index.ivfflat import IVFFlatIndex  # noqa: E402
+from .relation import Relation  # noqa: E402
 from .rerank import (  # noqa: E402
     BinaryQuantizedIndex,
     ExpressionIndex,
@@ -78,6 +81,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "Relation",
     "Metric",
     "FlatIndex",
     "HNSWIndex",

@@ -1,4 +1,5 @@
-"""Observability — phase timers and build progress.
+"""Observability — phase timers, build progress and device-memory
+accounting.
 
 The reference's story (SURVEY.md §5): compile-time ``*_BENCH`` flags wrap
 build phases in instr_time timers (hnsw.h:89-102), and
@@ -75,3 +76,42 @@ class Progress:
     def advance(self, n: int = 1) -> None:
         self.done += n
         self.callback(self.phase, self.done, self.total)
+
+
+def hbm_bytes(*tensors) -> int:
+    """Total bytes of the given device tensors (``numel · element_size``;
+    tuples are walked, None skipped) — the explicit device-memory budget
+    that replaces the maintenance_work_mem cliff (hnswbuild.c:530-549)."""
+    total = 0
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, tuple):
+            total += hbm_bytes(*t)
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def table_hbm_bytes(table) -> int:
+    parts = [getattr(table, n, None) for n in ("data", "idx", "val", "valid")]
+    return hbm_bytes(*[p for p in parts if p is not None])
+
+
+def hnsw_hbm_bytes(idx, slab: bool = False) -> int:
+    """The graph's bytes: its value arrays (0 while they alias the table's
+    own tensors) and both neighbor levels; with ``slab``, also the packed
+    layer-0 slab cache (``_nbr_vals``, with an int8 slab's scale and
+    norms), the largest device allocation of a 1M graph, which the
+    reference does not have."""
+    vals = () if getattr(idx, "_alias_values", False) else idx.values
+    total = hbm_bytes(vals, idx.nbr0, idx.nbr_up)
+    if slab:
+        total += hbm_bytes(idx._nbr_vals, idx._nbr_scale, idx._nbr_norm2)
+    return total
+
+
+def ivfflat_hbm_bytes(idx) -> int:
+    return hbm_bytes(idx.centroids, idx.postings_flat,
+                     getattr(idx, "post_values", None),
+                     getattr(idx, "post_vsq", None))

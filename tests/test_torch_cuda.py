@@ -8,7 +8,8 @@ generator on the table's device; K1 at 4,096 dims (the densified sparse
 scans); K4 (bit_topk) and K5 (bit_point_scores) equal to their plain
 versions, and the bit and sparse indexes on CUDA against the CPU; K2's
 int8 slab equal to its plain version (L1 within ``int8_l1_bound``), and
-the grouped exact engine on the card against the tiled scan.
+the grouped exact engine on the card against the tiled scan; the
+planner's calibrated pick against the timed paths.
 Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
 first use) and skips elsewhere.
 
@@ -18,6 +19,8 @@ which configures JAX for the reference's tests):
     python -m pytest --noconftest -p no:cacheprovider -m cuda -q \\
         tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -776,3 +779,36 @@ def test_sparse_indexes_on_cuda_match_cpu(dev, monkeypatch):
     built = HNSWIndex(gpu_t, Metric.IP, m=8, ef_construction=32,
                       wave_size=256, beam_expand=4)
     np.testing.assert_array_equal(built.levels, cpu_idx.levels)
+
+
+def test_calibrated_pick_is_fastest_on_card(dev):
+    """On the card the calibrated pick is within the timed runs' spread
+    of the fastest path (the smoke's phase 10 does this at 1M rows)."""
+    from pgvector_tpu_torch import planner as TPL
+
+    rng = np.random.default_rng(19)
+    db = rng.normal(size=(48_000, 24)).astype(np.float32)
+    t = DenseTable(24, device=dev)
+    t.insert(db)
+    h = HNSWIndex(t, Metric.L2, m=8, ef_construction=32, wave_size=1024,
+                  beam_expand=4)
+    q = db[:512] + 0.01
+    cal = TPL.calibrate(t, [h], Metric.L2, q, k=10, sizes=(32, 256),
+                        ef_search=40)
+    pick = TPL.choose_path(t, [h], Metric.L2, calibration=cal, q_count=512)
+    flat = FlatIndex(t, Metric.L2)
+    runs = {"exact": lambda: flat.search(q, 10),
+            "hnsw": lambda: h.search(q, 10, ef_search=40)}
+    times = {}
+    for kind, fn in runs.items():
+        fn()
+        times[kind] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+    spread = max(max(v) / min(v) for v in times.values())
+    best = min(min(v) for v in times.values())
+    assert min(times[pick.kind]) <= best * spread, (pick.kind, times)

@@ -3,8 +3,12 @@
 searches on the CPU (HNSW also through the int8 packed tier), a
 binary-quantized index, bit IVFFlat, a sparse HNSW index, the grouped
 exact engine over a bf16 table, the value types' text and binary I/O and
-aggregates, with checkpoint round trips, succeeds, and neither ``jax``
-nor ``pgvector_tpu`` is loaded."""
+aggregates, with checkpoint round trips, and the SQL-facing surface (a
+Relation loaded by COPY through the native codec, its HNSW and btree
+indexes, the planner, EXPLAIN ANALYZE, the batching executor, a
+replication log replayed onto a replica, the SQL functions) succeeds,
+and neither ``jax`` nor ``pgvector_tpu`` is loaded.  Building the codec
+writes only under the port's own build directory."""
 
 import os
 import subprocess
@@ -88,6 +92,40 @@ _SCRIPT = textwrap.dedent("""
         s2 = checkpoint.load_table(tmp + "/s", device="cpu")
         _, r2 = checkpoint.load_hnsw(s2, tmp + "/sh").search(q, 3)
         assert (r2 == r).all(), (r, r2)
+    # the SQL-facing surface
+    from pgvector_tpu_torch import functions, native, planner
+    from pgvector_tpu_torch.io import copy as pcopy
+    from pgvector_tpu_torch.io import replication
+    from pgvector_tpu_torch.runtime import BatchingExecutor
+    assert native.available()
+    rel = P.Relation(P.DenseTable(8, device="cpu"))
+    pcopy.copy_in_binary(rel, pcopy.copy_out_binary(table))
+    pcopy.copy_in_text(rel, pcopy.copy_out_text(table)[:10])
+    h = rel.create_index("hnsw", P.Metric.L2, m=8, ef_construction=32,
+                         wave_size=512, beam_expand=4)
+    bt = rel.create_index("btree")
+    assert bt.search_eq(db[7]).tolist() == [7, 2007]
+    d, r = rel.knn(db[:5], 3, ef_search=32)
+    assert (np.isin(r[:, 0], [0, 1, 2, 3, 4, 2000, 2001, 2002, 2003, 2004])
+            ).all(), r
+    assert "Index Searches: 1" in rel.explain(analyze=True, q=db[0], k=3)
+    assert planner.choose_path(rel.table, rel.indexes, P.Metric.L2).kind \
+        == "hnsw"
+    ex = BatchingExecutor(h, max_batch=8, max_wait_ms=1, ef_search=32)
+    try:
+        assert ex.search(db[9], 3, timeout=60)[1][0] in (9, 2009)
+    finally:
+        ex.shutdown()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_table(rel.table, tmp + "/t")
+        rt = checkpoint.load_table(tmp + "/t", device="cpu")
+        rel.replication_log = replication.ReplicationLog(tmp + "/log")
+        rel.insert(db[:4] + 1.0)
+        rel.delete([3])
+        rel.vacuum()
+        assert replication.apply_deltas(rt, [], tmp + "/log") == 3
+        assert torch.equal(rt.data[: rt.count], rel.table.data[: rt.count])
+    assert functions.l2_distance(P.Vector([0, 0]), P.Vector([3, 4])) == 5.0
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "pgvector_tpu")
                     and sys.modules[m] is not None)
@@ -103,3 +141,39 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+_BUILD_SCRIPT = textwrap.dedent("""
+    import os, sys
+    from pathlib import Path
+    sys.modules["jax"] = None
+    root = Path(sys.argv[1])
+    ref = root / "pgvector_tpu"
+
+    def tree():
+        return sorted((str(p), p.stat().st_mtime_ns)
+                      for p in ref.rglob("*") if "__pycache__" not in p.parts)
+
+    before = tree()
+    from pgvector_tpu_torch import native
+    assert ref not in native.LIB_PATH.parents, native.LIB_PATH
+    native.BUILD_DIR = Path(sys.argv[2])
+    native.LIB_PATH = native.BUILD_DIR / "libpgvt_codec.so"
+    assert native.available() and native.LIB_PATH.exists()
+    assert native.parse_vectors(["[1,2]"]).tolist() == [[1.0, 2.0]]
+    assert tree() == before
+    print("ok")
+""")
+
+
+def test_codec_builds_only_in_port_build_dir(tmp_path):
+    """A fresh build of the codec writes its library into the build
+    directory it is given and nothing under pgvector_tpu/."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-c", _BUILD_SCRIPT, root, str(tmp_path / "b")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+    assert (tmp_path / "b" / "libpgvt_codec.so").exists()
