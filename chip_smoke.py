@@ -53,6 +53,20 @@ the native codec and a replica rebuilt from a base checkpoint and the
 replication log (table, graph and results equal bit for bit), and the
 device-memory counts beside ``torch.cuda.memory_allocated``.
 
+Phase 11 runs last, after phase 9, on a fresh upload of phase 1's rows:
+the mesh paths on four shards of the card (``make_mesh(4, devices=
+[cuda:0] * 4)``): the row-sharded exact search through K1 on every shard
+(L2 and inner product, against the single-device ground truth), the
+dim-sharded exact search at 1,000 queries (L2, inner product, cosine),
+IVFFlat trained over the mesh and the device-sharded IVFFlat (recall at
+probes 10), the device-sharded and host fan-out HNSW wrappers over the
+first 200,000 rows (recall at ef 40 and 100, per-shard graphs equal bit
+for bit, a checkpoint loaded on a 4 × 2 fan-out mesh equal to the 1-D
+search), the visited-set and hop-cap knobs on those shards, and the mesh
+build of 50,000 rows equal to the single-device build bit for bit;
+where there are two cards or more, the sharded exact search over them
+too.
+
 Output: one JSON line per phase; a JSON line of the kernels (route,
 source, launches on the main path, error against the plain version,
 kernel, plain and library times at the main path's shapes, and the
@@ -1486,6 +1500,287 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
             "library_ms": None, "cases": cases}
 
 
+def mesh_phase(db, qs, smi, dev, k=10, n_hnsw=200_000, n_build=50_000,
+               dim_queries=1000):
+    """Phase 11: the mesh paths (pgvector_tpu_torch.parallel) on four
+    shards of one card, make_mesh(4, devices=[cuda:0] * 4), over a fresh
+    upload of phase 1's make_data(n, queries, seed=0).  With every count at
+    0: (1) sharded_exact_search and ShardedFlatIndex, L2 and IP, all
+    queries, against the single-device K1 ground truth (ids apart from
+    ties, distances within twice k1_error_bound plus torch_parity's
+    ATOL / RTOL; 4 K1 launches a search); (2) dim_sharded_exact_search,
+    4 × 32 dims, 1,000 queries, L2 / IP / cosine against the single-device
+    plain scan (dense_scores, the same formula unsharded) within ATOL /
+    RTOL; (3) IVFFlatIndex(mesh=...) with lists 1,000 (k-means through
+    train_centers_sharded) and DeviceShardedIVFFlatIndex with lists 250 a
+    shard, recall@10 at probes 10 >= 0.99; (4) DeviceShardedHNSWIndex
+    (row gathers, the hash2 visited set) and ShardedHNSWIndex (K2 over
+    each shard's slab) over the first 200,000 rows (m 16,
+    ef_construction 64, wave 1024, build beam 4, query beam 8), recall@10
+    at ef 40 / 100 >= 0.94 / 0.985 against K1 over those rows, the two
+    wrappers' per-shard nbr0 equal bit for bit, and a save loaded on a
+    (4 shards × 2 replicas) mesh with qaxis "qp" whose fan-out equals the
+    1-D search bit for bit; (5) the mesh build, HNSWIndex(build_mesh=...)
+    against HNSWIndex() over the first 50,000 rows, graphs equal bit for
+    bit; (6) the knobs on (4)'s ShardedHNSWIndex: PGVECTOR_TPU_VISITED
+    hash1 and hash2 (floors of (4)) and PGVECTOR_TPU_QUERY_MAX_STEPS=8
+    (recall and hops printed).  Where the machine has two or more cards,
+    a 1-D mesh over them runs (1) too and must equal the one-card mesh.
+    Returns the phase's K1 and K2 launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from torch_parity import ATOL, RTOL, assert_same_topk
+    from pgvector_tpu_torch import DenseTable, FlatIndex, HNSWIndex, \
+        IVFFlatIndex, Metric
+    from pgvector_tpu_torch import parallel as TP
+    from pgvector_tpu_torch.index.flat import dense_exact
+    from pgvector_tpu_torch.ops import distance as D
+    from pgvector_tpu_torch.ops.fused_topk import fused_topk, k1_error_bound
+    from pgvector_tpu_torch.ops.packed_hop import packed_hop
+    from pgvector_tpu_torch.ops.topk import topk_smallest
+
+    t_phase = time.perf_counter()
+    n, nq = len(db), len(qs)
+    table = DenseTable(128, capacity=n, device=dev)
+    table.insert(db)
+    data = table.data[:n]
+    qs_dev = torch.as_tensor(qs, device=dev)
+    mesh = TP.make_mesh(4, devices=[dev] * 4)
+    out = {"phase": "mesh", "nvidia_smi": smi, "n": n, "queries": nq,
+           "k": k, "mesh": repr(mesh)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def recall(r, gt):
+        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                              for a, b in zip(r, gt)]))
+
+    # the counts go to 0 here: what follows is this phase's main path
+    fused_topk.launches = packed_hop.launches = 0
+
+    # ---- 11.1 row-sharded exact search (K1 on every shard) --------------
+    exact = {}
+    gts = {}
+    for metric in (Metric.L2, Metric.IP):
+        (d0, i0, path), _ = timed(lambda: dense_exact(
+            metric, qs_dev, data, n, k, table.valid[:n], 16384))
+        check(path == "fused", f"the {metric.name} ground truth took K1")
+        before = fused_topk.launches
+        (d1, i1), dt = timed(lambda: TP.sharded_exact_search(
+            mesh, metric, data, qs_dev, k, valid=table.valid[:n]))
+        per_search = fused_topk.launches - before
+        check(per_search == 4, f"4 K1 launches a sharded search, not "
+              f"{per_search}")
+        dbsq = (torch.sum(data * data, dim=1) if metric is Metric.L2
+                else torch.zeros(n, device=dev))
+        bound = k1_error_bound(qs_dev, data, dbsq, i0, i1)
+        bnp = bound.cpu().numpy()
+        d0n, i0n, d1n, i1n = (t.cpu().numpy() for t in (d0, i0, d1, i1))
+        assert_same_topk(d0n, i0n, d1n, i1n, atol=2.0 * bnp + ATOL, rtol=RTOL)
+        flat_idx = TP.ShardedFlatIndex(mesh, table, metric)
+        (fd, fi), fdt = timed(lambda: flat_idx.search(qs, k))
+        ud = np.sqrt(d0n) if metric is Metric.L2 else d0n
+        ub = (np.sqrt(d0n + 2 * bnp) - np.sqrt(np.maximum(d0n - 2 * bnp, 0))
+              if metric is Metric.L2 else 2 * bnp)
+        assert_same_topk(ud, i0n, fd, fi, atol=ub + ATOL, rtol=RTOL)
+        gts[metric.name] = i0n
+        err = np.abs(d1n - d0n)[np.isfinite(d0n)]
+        exact[metric.name] = {
+            "qps": nq / dt, "sharded_flat_qps": nq / fdt,
+            "k1_launches_a_search": per_search,
+            "ids_equal_frac": float((i0n == i1n).mean()),
+            "max_abs_err": float(err.max()),
+            "max_err_over_bound": float((np.abs(d1n - d0n)
+                                         / np.maximum(bnp, 1e-30))
+                                        [np.isfinite(d0n)].max())}
+        if torch.cuda.device_count() > 1:
+            cards = TP.make_mesh(torch.cuda.device_count())
+            virt = TP.make_mesh(cards.size, devices=[dev] * cards.size)
+            a = TP.sharded_exact_search(virt, metric, data, qs_dev, k)
+            b = TP.sharded_exact_search(cards, metric, data, qs_dev, k)
+            check(all(torch.equal(x, y.to(dev)) for x, y in zip(a, b)),
+                  f"the {cards.size}-card mesh equals {cards.size} shards "
+                  "of one card")
+            exact[metric.name]["cards_mesh_equal"] = cards.size
+    out["sharded_exact"] = exact
+    out["sharded_exact_tolerance"] = ("ids apart from ties; distances "
+                                      "within 2 k1_error_bound + ATOL, "
+                                      "rtol RTOL (tests/torch_parity.py)")
+    gt = gts["L2"]
+
+    # ---- 11.2 dim-sharded exact search (4 x 32 dims) --------------------
+    dims = {}
+    dim_queries = min(dim_queries, nq)
+    qd = qs_dev[:dim_queries].contiguous()
+    for metric in (Metric.L2, Metric.IP, Metric.COSINE):
+        (d1, i1), dt = timed(lambda: TP.dim_sharded_exact_search(
+            mesh, metric, data, qd, k))
+        d1, i1 = d1.cpu().numpy(), i1.cpu().numpy()
+        d0, i0 = topk_smallest(D.dense_scores(metric, qd, data), k)
+        d0, i0 = d0.cpu().numpy(), i0.cpu().numpy()
+        torch.cuda.empty_cache()
+        assert_same_topk(d0, i0, d1, i1, atol=ATOL, rtol=RTOL)
+        dims[metric.name] = {"seconds": dt, "qps": dim_queries / dt,
+                             "ids_equal_frac": float((i0 == i1).mean()),
+                             "max_abs_err": float(np.abs(d1 - d0).max())}
+    out["dim_sharded"] = {"queries": dim_queries, "cols_a_shard": 32,
+                          "tolerance": f"atol {ATOL}, rtol {RTOL} against "
+                          "the single-device dense_scores scan",
+                          "metrics": dims,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+    del qd
+    torch.cuda.empty_cache()
+
+    # ---- 11.3 IVFFlat: k-means over the mesh; device-sharded ------------
+    ivf = {}
+    for name, make in (
+            ("mesh_kmeans", lambda: IVFFlatIndex(table, Metric.L2,
+                                                 lists=1000, seed=1,
+                                                 mesh=mesh)),
+            ("device_sharded", lambda: TP.DeviceShardedIVFFlatIndex(
+                mesh, table, Metric.L2, lists=250, seed=1))):
+        index, build_s = timed(make)
+        index.search(qs[:100], k, probes=10)  # warm-up
+        (_, r), dt = timed(lambda: index.search(qs, k, probes=10))
+        rec = recall(r, gt)
+        check(rec >= 0.99, f"IVF {name} recall@10 {rec} >= 0.99 at probes "
+              "10")
+        ivf[name] = {"build_s": build_s, "recall_at_10": rec,
+                     "qps": nq / dt}
+        if name == "mesh_kmeans":
+            ivf[name]["kmeans_rounds"] = index.kmeans_iters
+        del index
+    out["ivf"] = ivf
+    torch.cuda.empty_cache()
+
+    # ---- 11.4 sharded HNSW over the first n_hnsw rows --------------------
+    floors = {40: 0.94, 100: 0.985}
+    sub = DenseTable(128, capacity=n_hnsw, device=dev)
+    sub.insert(db[:n_hnsw])
+    (gd, gt_h, _), _ = timed(lambda: dense_exact(
+        Metric.L2, qs_dev, sub.data[:n_hnsw], n_hnsw, k,
+        sub.valid[:n_hnsw], 16384))
+    gt_h = gt_h.cpu().numpy()
+    kw = dict(m=16, ef_construction=64, wave_size=1024, beam_expand=4,
+              seed=0)
+    hnsw = {"n": n_hnsw, "shards": 4}
+    dsh, hnsw["device_sharded_build_s"] = timed(
+        lambda: TP.DeviceShardedHNSWIndex(mesh, sub, Metric.L2, **kw))
+    shh, hnsw["sharded_build_s"] = timed(
+        lambda: TP.ShardedHNSWIndex(sub, Metric.L2, n_shards=4, **kw))
+    check(all(torch.equal(a.nbr0, b.nbr0)
+              for a, b in zip(dsh.shards, shh.shards)),
+          "the two wrappers' per-shard nbr0 are equal bit for bit")
+    for s in shh.shards:
+        s.beam_expand = 8  # the query-side beam, as phase 4
+    sweeps = {"device_sharded": [], "sharded": []}
+    base = {}
+    for ef in (40, 100):
+        k2 = packed_hop.launches
+        (dd, rd), dt = timed(lambda: dsh.search(qs, k, ef_search=ef,
+                                                 expand=8))
+        check(packed_hop.launches == k2,
+              "DeviceShardedHNSWIndex gathers rows (no K2)")
+        base[ef] = (dd, rd)
+        rec = recall(rd, gt_h)
+        check(rec >= floors[ef], f"DeviceSharded recall@10 {rec} >= "
+              f"{floors[ef]} at ef {ef}")
+        sweeps["device_sharded"].append({"ef": ef, "recall_at_10": rec,
+                                         "qps": nq / dt})
+        shh.search(qs[:100], k, ef_search=ef)  # warm-up: the slabs
+        k2 = packed_hop.launches
+        (_, rs), dt = timed(lambda: shh.search(qs, k, ef_search=ef))
+        hops = sum(s._last_scan_steps for s in shh.shards)
+        check(packed_hop.launches - k2 == hops,
+              f"K2 once a layer-0 hop of every shard: "
+              f"{packed_hop.launches - k2} launches for {hops} hops")
+        rec = recall(rs, gt_h)
+        check(rec >= floors[ef], f"Sharded recall@10 {rec} >= "
+              f"{floors[ef]} at ef {ef}")
+        sweeps["sharded"].append({"ef": ef, "recall_at_10": rec,
+                                  "qps": nq / dt, "k2_launches": hops})
+    hnsw["sweeps"] = sweeps
+    tmp = tempfile.mkdtemp(prefix="pgvt_mesh_")
+    try:
+        dsh.save(tmp + "/h")
+        mesh2 = TP.make_mesh2(4, 2, devices=[dev] * 8)
+        fan = TP.DeviceShardedHNSWIndex.load(mesh2, sub, tmp + "/h",
+                                             qaxis="qp")
+        (fd, fr), dt = timed(lambda: fan.search(qs, k, ef_search=40,
+                                                expand=8))
+        check(np.array_equal(fr, base[40][1])
+              and np.array_equal(fd, base[40][0]),
+              "the loaded (4 x 2) fan-out equals the 1-D search bit for bit")
+        hnsw["fanout"] = {"mesh": repr(mesh2), "ef": 40, "qps": nq / dt,
+                          "equal_to_1d": True}
+        del fan
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 11.6 the knobs on the ShardedHNSWIndex's shards -----------------
+    knobs = {}
+    for env, val in (("PGVECTOR_TPU_VISITED", "hash1"),
+                     ("PGVECTOR_TPU_VISITED", "hash2"),
+                     ("PGVECTOR_TPU_QUERY_MAX_STEPS", "8")):
+        os.environ[env] = val
+        try:
+            (_, rk), dt = timed(lambda: shh.search(qs, k, ef_search=40))
+        finally:
+            del os.environ[env]
+        rec = recall(rk, gt_h)
+        hops = [s._last_scan_steps for s in shh.shards]
+        knobs[f"{env}={val}"] = {"ef": 40, "recall_at_10": rec,
+                                 "qps": nq / dt, "layer0_hops": hops}
+        if env == "PGVECTOR_TPU_VISITED":
+            check(rec >= floors[40], f"{env}={val} recall@10 {rec} >= "
+                  f"{floors[40]}")
+        else:
+            check(max(hops) <= 8, f"the hop cap holds: {hops}")
+    hnsw["knobs"] = knobs
+    out["hnsw"] = hnsw
+    for s in shh.shards:
+        s._drop_packed()
+    del dsh, shh, base
+    torch.cuda.empty_cache()
+
+    # ---- 11.5 the mesh build over the first n_build rows -----------------
+    small = DenseTable(128, capacity=n_build, device=dev)
+    small.insert(db[:n_build])
+    one, one_s = timed(lambda: HNSWIndex(small, Metric.L2, **kw))
+    par, par_s = timed(lambda: HNSWIndex(small, Metric.L2, build_mesh=mesh,
+                                         **kw))
+    same = {name: bool(torch.equal(getattr(one, name), getattr(par, name)))
+            for name in ("nbr0", "nbr_up", "kept0", "kept_up")}
+    same["levels"] = bool(np.array_equal(one.levels, par.levels))
+    same["entry"] = (one.entry, one.entry_level) == (par.entry,
+                                                      par.entry_level)
+    check(all(same.values()), f"the mesh build equals the single-device "
+          f"build bit for bit: {same}")
+    out["mesh_build"] = {"n": n_build, "single_s": one_s, "mesh_s": par_s,
+                         "equal": same}
+    del one, par, small, sub, table, data, qs_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"fused_topk": fused_topk.launches,
+                "packed_hop": packed_hop.launches}
+    check(launches["fused_topk"] > 0 and launches["packed_hop"] > 0,
+          f"K1 and K2 launched in phase 11: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
 def _profiled_waves(index, orig_sl):
     """Wrap ``index._insert_wave`` for a build: the middle wave through
     torch.profiler (with the candidates its beams could score), every
@@ -2278,13 +2573,20 @@ def main():
     # ---- 9. halfvec at GIST-1M's width, on a table of its own -----------
     int8_row = halfvec_phase(smi, dev, n=min(200_000, args.n))
 
+    # ---- 11. the mesh paths: four shards of the card ---------------------
+    launches11 = mesh_phase(db, qs, smi, dev, k,
+                            n_hnsw=min(200_000, args.n),
+                            n_build=min(50_000, args.n))
+
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/fused_topk.cu",
          "replaces": "pgvector_tpu/ops/pallas_topk.py:95",
-         "launches": launches["fused_topk"] + launches10["fused_topk"],
+         "launches": launches["fused_topk"] + launches10["fused_topk"]
+         + launches11["fused_topk"],
          "launches_by_phase": {"4": launches["fused_topk"],
-                               "10": launches10["fused_topk"]},
+                               "10": launches10["fused_topk"],
+                               "11": launches11["fused_topk"]},
          "on_main_path": True,
          "max_abs_err": max(c["max_abs_err"] for c in k1),
          "ms": k1[0]["ms"], "plain_ms": k1[0]["plain_ms"],
@@ -2294,9 +2596,11 @@ def main():
         {"name": "packed_hop", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
          "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
-         "launches": launches["packed_hop"] + launches10["packed_hop"],
+         "launches": launches["packed_hop"] + launches10["packed_hop"]
+         + launches11["packed_hop"],
          "launches_by_phase": {"4": launches["packed_hop"],
-                               "10": launches10["packed_hop"]},
+                               "10": launches10["packed_hop"],
+                               "11": launches11["packed_hop"]},
          "on_main_path": True,
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          "ms": k2_ms, "plain_ms": k2_plain,

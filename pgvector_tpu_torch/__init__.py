@@ -10,9 +10,11 @@ IVFFlat (dense and bit), the re-ranking pipelines (binary quantization,
 subvectors, expression indexes), checkpoints in the JAX package's
 directory format, and the SQL-facing surface (:class:`Relation` with the
 planner, the btree index, COPY through the native codec, the replication
-log, the batching executor and the SQL functions), with the JAX
-package's two Pallas kernels as hand-written CUDA kernels for Hopper
-(``csrc/``; built with ``nvcc`` at first use):
+log, the batching executor and the SQL functions) and the mesh paths
+(:mod:`pgvector_tpu_torch.parallel`: sharded search, sharded k-means,
+sharded indexes and the mesh build over a mesh of torch devices), with
+the JAX package's two Pallas kernels as hand-written CUDA kernels for
+Hopper (``csrc/``; built with ``nvcc`` at first use):
 
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
   (3xTF32 on the tensor cores)

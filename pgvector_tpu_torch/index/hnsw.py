@@ -38,14 +38,29 @@ Vacuum is the reference's 4 passes (hnswvacuum.c:777-797): drop dead TIDs,
 repair the lists that pointed at deleted elements by re-searching, check,
 then free the slots.
 
+With ``build_mesh`` (a ``parallel.Mesh`` of more than one device) a
+build's wave searches, select rows and backlink chunks split over the
+mesh's devices (``hnsw_kernels.wave_search_sharded`` and
+``connect_level_sharded``), and the graph is the single-device build's
+bit for bit.  The reference's knobs are read where it reads them:
+``PGVECTOR_TPU_VISITED`` (the visited set of scans and builds),
+``PGVECTOR_TPU_L_UNROLL`` (the upper-level depth, clamped to ``L_MAX``),
+``PGVECTOR_TPU_QUERY_MAX_STEPS`` (a layer-0 hop cap on plain scans),
+``PGVECTOR_TPU_WAVE_SYNC_EVERY`` (a device sync and a progress line on
+stderr every N build waves) and ``PGVECTOR_TPU_PHASE_SYNC`` (with timers
+on, a device sync at each wave's search / connect boundary).
+
 Left out of the port: the ``sketch`` packed tier (a JL projection the
 reference offers only on request).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -126,6 +141,7 @@ class HNSWIndex:
         notice_hook=None,
         progress=None,
         capacity: Optional[int] = None,
+        build_mesh=None,
     ):
         if not MIN_M <= m <= MAX_M:
             raise DataException(f'value {m} out of bounds for option "m"')
@@ -177,6 +193,9 @@ class HNSWIndex:
         #: wave; "incremental" = the reference's per-source one-eviction
         #: fold (hnswutils.c:1181-1229)
         self.backlink_mode = backlink_mode
+        #: optional ``parallel.Mesh``: a build's wave searches and connects
+        #: split over its devices, giving the single-device graph
+        self.build_mesh = build_mesh
         self.dedup = dedup
         self.notice_hook = notice_hook or (lambda msg: None)
         self.progress = progress or Progress()
@@ -196,7 +215,12 @@ class HNSWIndex:
     # ------------------------------------------------------------- graph state
     def _derive_l_unroll(self, capacity: int) -> int:
         """Upper-level depth: the highest level with ≥2 expected elements
-        (E[count at L] = n·m^-L), as the reference derives it."""
+        (E[count at L] = n·m^-L), as the reference derives it, or
+        ``PGVECTOR_TPU_L_UNROLL`` clamped to [1, L_MAX] (the upper-level
+        arrays are L_MAX deep at most)."""
+        env = os.environ.get("PGVECTOR_TPU_L_UNROLL")
+        if env is not None:
+            return min(L_MAX, max(1, int(env)))
         need = math.floor(math.log(max(capacity // 2, 2)) / math.log(self.m))
         return min(L_MAX, max(2, need))
 
@@ -519,10 +543,24 @@ class HNSWIndex:
             del values
 
         wave_size = self._effective_wave_size()
-        for p in range(0, len(elems), wave_size):
+        # PGVECTOR_TPU_WAVE_SYNC_EVERY=N: wait for the graph every N waves
+        # and write the build's progress to stderr (hnsw.py:596-618)
+        sync_every = int(os.environ.get("PGVECTOR_TPU_WAVE_SYNC_EVERY", "0")
+                         or 0)
+        n_waves = -(-len(elems) // wave_size)
+        t_wave0 = time.time()
+        for wi, p in enumerate(range(0, len(elems), wave_size)):
             with timers.phase("hnsw.wave"):
                 self._insert_wave(elems[p: p + wave_size], lv[p: p + wave_size])
             self.progress.advance(min(wave_size, len(elems) - p))
+            if sync_every and (wi + 1) % sync_every == 0:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                rate = (wi + 1) / max(time.time() - t_wave0, 1e-9)
+                print(f"hnsw build: wave {wi + 1}/{n_waves} "
+                      f"({rate:.2f} waves/s, "
+                      f"eta {(n_waves - wi - 1) / max(rate, 1e-9):.0f}s)",
+                      file=sys.stderr, flush=True)
 
     def _wave_bytes(self, b: int) -> int:
         """Transient device bytes of one insert wave of ``b`` elements: the
@@ -699,13 +737,21 @@ class HNSWIndex:
         lv_pad = np.concatenate([lv, np.zeros(nq_pad - nq, lv.dtype)])
         e_dev = torch.as_tensor(e_pad.astype(np.int32), device=self.device)
         qs = K.elems_as_queries(self.kind, self.values, e_dev)
-        out_d, out_i = K.wave_search(
+        mesh = self.build_mesh
+        ndev = mesh.size if mesh is not None else 1
+        # the mesh wave search (hnsw.py:857-873), at K.SHARD_MIN_QUERIES
+        # queries a device or more
+        wave_fn = (functools.partial(K.wave_search_sharded, mesh)
+                   if ndev > 1 and nq_pad % ndev == 0
+                   and nq_pad // ndev >= K.SHARD_MIN_QUERIES
+                   else K.wave_search)
+        out_d, out_i = wave_fn(
             self.kind, self.metric, self.values, self.nbr0, self.nbr_up,
             self._up_slot_dev, qs, lv_pad.astype(np.int32), self.entry,
             self.entry_level, ef=self.ef_construction,
             l_unroll=self._l_unroll, expand=self.beam_expand,
             self_ids=e_dev if exclude_self else None,
-            sdim=self._scorer_sdim())
+            sdim=self._scorer_sdim(), vmode=K.visited_mode())
         return out_d, out_i, nq, nq_pad
 
     def _search_wave(self, elems: np.ndarray, lv: np.ndarray,
@@ -718,10 +764,16 @@ class HNSWIndex:
     def _insert_wave_fused(self, elems: np.ndarray, lv: np.ndarray,
                            exclude_self: bool = False) -> None:
         """Search + connect: one wave search, then one connect pass per
-        level from the top eligible level down."""
+        level from the top eligible level down.  Phase timers read the host
+        clock; ``PGVECTOR_TPU_PHASE_SYNC=1`` (with timers on) ends each
+        phase with a device sync, so the search / connect split is the
+        device's (hnsw.py:898-912)."""
+        sync = os.environ.get("PGVECTOR_TPU_PHASE_SYNC", "0") == "1"
         with timers.phase("hnsw.wave.search"):
             out_d, out_i, nq, nq_pad = self._search_wave_raw(elems, lv,
                                                              exclude_self)
+            if sync:
+                self._sync()
         with timers.phase("hnsw.wave.connect"):
             dev = self.device
             e_conn = np.concatenate(
@@ -764,12 +816,21 @@ class HNSWIndex:
                 chunk = min(16384, _round_pow2(b_lvl * lm))
                 if self.kind == "sparse":
                     chunk = min(chunk, self._sparse_pair_rows_cap())
-                K.connect_level(
+                mesh = self.build_mesh
+                ndev = mesh.size if mesh is not None else 1
+                # the mesh connect: select rows and backlink chunks split
+                # over the devices (hnsw.py:959-981)
+                connect = (functools.partial(K.connect_level_sharded, mesh)
+                           if ndev > 1 and b_lvl % ndev == 0
+                           and b_lvl >= ndev else K.connect_level)
+                connect(
                     self.kind, self.metric, self.values, self.nbr0,
                     self.nbr_up, self.kept0, self.kept_up, self._up_slot_dev,
                     e_lvl, elig_dev, lc, pd, pi, m=self.m,
                     mi=min(self.m, b_lvl), smax=lm, chunk=chunk,
                     sdim=self._pair_sdim())
+            if sync:
+                self._sync()
 
     def _insert_wave(self, elems: np.ndarray, lv: np.ndarray) -> None:
         """One wave: batched search + neighbor selection + connection
@@ -1048,7 +1109,10 @@ class HNSWIndex:
             expand=self.beam_expand, packed_vals=packed_vals,
             packed_scale=self._nbr_scale, packed_norm2=self._nbr_norm2,
             rerank=(pdt is not None and pdt != torch.float32),
-            sdim=self._scorer_sdim())
+            sdim=self._scorer_sdim(), vmode=K.visited_mode(),
+            # a straggler cap on layer-0 hops (a recall trade; 0 = none)
+            max_steps=int(os.environ.get("PGVECTOR_TPU_QUERY_MAX_STEPS",
+                                         "0") or 0))
         #: layer-0 hop count of the last scan
         self._last_scan_steps = steps
         return stored_to_user(self.metric, d), r

@@ -24,18 +24,31 @@ From JAX to PyTorch:
   sliced to size: ties keep position order, as the Pallas hop tail does;
 - graph arrays are updated in place where the reference donates them.
 
-Plain scans and builds run with the visited set ``off`` (the reference's
-default): the pool membership check keeps the ef pool duplicate-free.
-Iterative scans keep a ``hash2`` visited table and a discarded pool
-across resumes (:func:`query_search_first`, :func:`query_search_resume`)
-and, as in the reference, take the row-gather hop.  The packed query hop
-of a dense index is one kernel, K2 (:func:`..ops.packed_hop.packed_hop`);
-every bit distance — hop, wave search and pairwise select block — is K5
-(:func:`..ops.bit_scan.bit_point_scores`).
+Plain scans and builds take the visited set that
+``PGVECTOR_TPU_VISITED`` names (:func:`visited_mode`: ``off`` by default,
+as in the reference, where the pool membership check alone keeps the ef
+pool duplicate-free; ``hash1`` or ``hash2``), and a caller may pass its
+own ``vmode``: the device-sharded HNSW search passes ``hash2``, the
+reference's default argument.  Iterative scans keep a ``hash2`` visited
+table and a discarded pool across resumes (:func:`query_search_first`,
+:func:`query_search_resume`) and, as in the reference, take the
+row-gather hop.  The packed query hop of a dense index is one kernel, K2
+(:func:`..ops.packed_hop.packed_hop`), when the visited set is ``off``
+(K2 takes no table, as the reference's Pallas tail); under ``hash1`` or
+``hash2`` the hop scores the same slabs in plain torch ops and probes the
+table before scoring.  Every bit distance — hop, wave search and pairwise
+select block — is K5 (:func:`..ops.bit_scan.bit_point_scores`).
+
+The mesh build (:func:`wave_search_sharded`, :func:`connect_level_sharded`)
+splits a wave's queries and its select rows and backlink chunks over the
+devices of a ``parallel.Mesh``, one device after another from this
+process, and gathers the results in device order; the graph it writes is
+the single-device build's, bit for bit.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -49,6 +62,7 @@ from ..ops.distance import (dense_point_scores, dot_precision,
 from ..ops.distance import int8_point_scores  # noqa: F401
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
+from ..parallel.mesh import all_gather, shard_rows, to_device
 
 BIG = 3.0e38
 
@@ -188,6 +202,24 @@ _V_SALT1 = 0x9E3779B1
 _V_SALT2 = 0x85EBCA77
 
 
+#: the visited-set structures a scan or build may take
+VISITED_MODES = ("off", "hash1", "hash2")
+
+
+def visited_mode() -> str:
+    """The visited set of plain scans and builds, from
+    ``PGVECTOR_TPU_VISITED`` (hnsw_kernels.py:303-323): ``off`` (the
+    default: no table; the pool membership check keeps the ef pool
+    duplicate-free and an evicted node re-enters only while it beats the
+    pool's worst), ``hash1`` (one probe a slot) or ``hash2`` (the exact
+    2-choice table)."""
+    mode = os.environ.get("PGVECTOR_TPU_VISITED", "off")
+    if mode not in VISITED_MODES:
+        raise ValueError(f'PGVECTOR_TPU_VISITED "{mode}" is not one of '
+                         f"{', '.join(VISITED_MODES)}")
+    return mode
+
+
 def visited_capacity(ef: int) -> int:
     """Table width per query: the typical layer-0 visit count (~ef·lm/2
     scored candidates) stays under ~1/3 load with 2-choice probing.  A
@@ -285,9 +317,12 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     adjacency-packed neighbor values ``nbr_vals[cap, 2m, D]`` (f32, bf16
     or int8), the queries to score them against, the level-0 lists and,
     for an int8 slab, ``(qc, sq, q2, pnorm2, scale)`` (else None).  Each
-    expanded node's neighbor values are one contiguous slab; the neighbor
-    ids, the slab scores and the merge run in K2, which takes no visited
-    set and no discarded pool (as the reference's Pallas tail)."""
+    expanded node's neighbor values are one contiguous slab.  With the
+    visited set ``off`` the neighbor ids, the slab scores and the merge
+    run in K2, which takes no visited set and no discarded pool (as the
+    reference's Pallas tail); otherwise the slabs are scored in torch ops
+    after the duplicate, pool and visited checks (the reference's packed
+    path outside its Pallas tail, hnsw_kernels.py:464-516)."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -307,13 +342,17 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     sel_elem = torch.where(ok, torch.gather(pool_i, 1, sel), -1)
     sel_flat = sel_elem.reshape(-1)
     if packed is not None:
-        # neighbor ids, slab scores and the merge in one kernel (K2)
         nbr_vals, qs_p, nbr0, int8 = packed
-        pool_packed = pool_i * 2 + pool_x.to(torch.int32)
-        d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
-                           sel_flat.contiguous(), nbr0, nbr_vals, qs_p, ef,
-                           metric, int8)
-        return d, pp >> 1, (pp & 1) == 1, visited, done
+        if vmode == "off" and disc is None:
+            # neighbor ids, slab scores and the merge in one kernel (K2)
+            pool_packed = pool_i * 2 + pool_x.to(torch.int32)
+            d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
+                               sel_flat.contiguous(), nbr0, nbr_vals, qs_p,
+                               ef, metric, int8)
+            return d, pp >> 1, (pp & 1) == 1, visited, done
+        return _packed_hop_visited(pool_d, pool_i, pool_x, sel_flat,
+                                   packed, metric, visited, ef, disc, done,
+                                   vmode)
     # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
     nbrs = torch.where(sel_flat[:, None] >= 0, nb, -1).reshape(nq, -1)
@@ -335,6 +374,40 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
         visited, seen = visited_probe(visited, nbrs, vmode)
         nbrs = torch.where(seen, -1, nbrs)
     nd = score(qs, nbrs)
+    return _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, visited, ef, disc,
+                      done)
+
+
+def _packed_hop_visited(pool_d, pool_i, pool_x, sel_flat, packed,
+                        metric: Metric, visited, ef: int, disc, done,
+                        vmode: str):
+    """The packed hop with a visited table: each selected element's slab
+    stays in adjacency order, so a repeated id is masked in place (a
+    strictly-lower-triangle compare) rather than sorted away; ids already
+    in the pool and ids the table has seen are masked too, then the slab
+    scores and the merge."""
+    nbr_vals, qs_p, nbr0, int8 = packed
+    nq = pool_d.shape[0]
+    safe = _long(sel_flat)
+    nbrs = torch.where(sel_flat[:, None] >= 0, nbr0[safe], -1).reshape(nq, -1)
+    w = nbrs.shape[1]
+    v = nbr_vals[safe].reshape(nq, w, nbr_vals.shape[-1])
+    if w > nbr0.shape[1]:
+        tri = torch.ones((w, w), dtype=torch.bool,
+                         device=nbrs.device).tril(-1)
+        dup = torch.any((nbrs[:, :, None] == nbrs[:, None, :]) & tri[None]
+                        & (nbrs >= 0)[:, None, :], dim=2)
+        nbrs = torch.where(dup, -1, nbrs)
+    in_pool = torch.any(nbrs[:, :, None] == pool_i[:, None, :], dim=2)
+    nbrs = torch.where(in_pool, -1, nbrs)
+    visited, seen = visited_probe(visited, nbrs, vmode)
+    nbrs = torch.where(seen, -1, nbrs)
+    if int8 is None:
+        nd = dense_point_scores(metric, qs_p, v, nbrs)
+    else:
+        qc, sq, q2, pnorm2, scale = int8
+        nd = int8_point_scores(metric, qs_p, scale, pnorm2, v, nbrs,
+                               query=(qc, sq, q2))
     return _hop_merge(pool_d, pool_i, pool_x, nbrs, nd, visited, ef, disc,
                       done)
 
@@ -499,12 +572,43 @@ def select_neighbors(base_d, pair_d, valid, lm: int, forced=None):
     return pos, kept_sel
 
 
+#: rows of one batched product of the pairwise block.  Every call but the
+#: one-row intra-wave block takes this shape, padded, so the library runs
+#: one algorithm whatever the number of rows and a row's distances do not
+#: depend on the rows beside it: the mesh build splits select rows over
+#: devices and must give the single-device graph bit for bit
+PAIR_BLOCK = 256
+
+#: the fewest wave queries a device of the mesh build takes: CUDA's sum
+#: reductions pick their thread layout by the number of outputs below 16,
+#: and the entry point's distance is one output a query
+SHARD_MIN_QUERIES = 16
+
+
+def _gram(v: torch.Tensor) -> torch.Tensor:
+    """(T, C, C) products ``v @ v.T`` of a (T, C, D) block, PAIR_BLOCK
+    rows a call (the last block zero-padded)."""
+    t = v.shape[0]
+    if t <= 1:
+        return torch.bmm(v, v.transpose(1, 2))
+    out = []
+    for s in range(0, t, PAIR_BLOCK):
+        blk = v[s: s + PAIR_BLOCK]
+        n = blk.shape[0]
+        if n < PAIR_BLOCK:
+            blk = torch.cat([blk, blk.new_zeros((PAIR_BLOCK - n,)
+                                                + tuple(blk.shape[1:]))])
+        out.append(torch.bmm(blk, blk.transpose(1, 2))[:n])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
                     sdim: int = 0) -> torch.Tensor:
     """(T, C, C) stored distances among each row's candidate elements.
 
-    Dense L2/IP/cos ride one batched f32 product (the reference left it
-    to XLA at HIGHEST precision); dense L1 is a broadcast block.  Bit runs
+    Dense L2/IP/cos ride batched f32 products (:func:`_gram`; the
+    reference left them to XLA at HIGHEST precision); dense L1 is a
+    broadcast block.  Bit runs
     K5 with the candidates' own words as the queries, (T·C, W) against
     rows (T·C, C), so no (T, C, C, W) block is built.  Sparse with
     ``sdim > 0`` (L2/IP/cos) scatters each candidate dense into (sdim,)
@@ -517,7 +621,7 @@ def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
         v = values[safe].float()  # (T, C, D)
         if metric in (Metric.L2, Metric.IP, Metric.COSINE):
             dot_precision()
-            ip = torch.bmm(v, v.transpose(1, 2))
+            ip = _gram(v)
             if metric is Metric.L2:
                 sq = torch.sum(v * v, dim=-1)
                 d = torch.clamp(sq[:, :, None] - 2.0 * ip + sq[:, None, :],
@@ -538,7 +642,7 @@ def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
             v = scatter_dense(ridx.reshape(t * c, p), rval.reshape(t * c, p),
                               sdim)[:, :sdim].reshape(t, c, sdim)
             with highest_precision():
-                ip = torch.bmm(v, v.transpose(1, 2))
+                ip = _gram(v)
             if metric is Metric.IP:
                 d = -ip
             else:
@@ -688,18 +792,10 @@ def intra_wave_candidates(kind, metric, values, elems, eligible, mi: int,
     return torch.where(ids >= 0, d_s, torch.inf), ids
 
 
-def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
-                  up_slot, elems, eligible, level: int, pool_d, pool_i,
-                  m: int, mi: int, smax: int, chunk: int,
-                  sdim: int = 0) -> None:
-    """One connect pass for one level of an insert wave: intra-wave
-    candidates, SelectNeighbors per wave member, own-list writes, then
-    backlink merges grouped by target.  The graph tensors ``nbr0``,
-    ``nbr_up``, ``kept0`` and ``kept_up`` are updated in place, where the
-    reference donates them to its jitted kernel."""
-    level0 = level == 0
-    lm = 2 * m if level0 else m
-    # 1. blank ineligible rows, fold intra-wave candidates into the pools
+def _connect_pools(kind, metric, values, elems, eligible, pool_d, pool_i,
+                   mi: int, sdim: int):
+    """Step 1 of a connect: blank ineligible rows and fold the intra-wave
+    candidates into the pools."""
     pool_d = torch.where(eligible[:, None], pool_d, torch.inf)
     pool_i = torch.where(eligible[:, None], pool_i, -1)
     if mi > 0:
@@ -709,23 +805,75 @@ def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
         intra_d = torch.where(intra_i >= 0, intra_d, torch.inf)
         pool_d = torch.cat([pool_d, intra_d], dim=1)
         pool_i = torch.cat([pool_i, intra_i], dim=1)
-    # 2. SelectNeighbors over each member's pool (Algorithm 4)
+    return pool_d, pool_i
+
+
+def _connect_select(kind, metric, values, pool_d, pool_i, lm: int,
+                    sdim: int):
+    """Step 2: SelectNeighbors over each row's pool (Algorithm 4) →
+    (selected ids, their distances, kept flags), each (rows, lm)."""
     pair = _pairwise_dists(kind, metric, values, pool_i, sdim)
     sel, keptf, pos = _select_from(pool_i, pool_d, pair, lm)
     sel_d = torch.where(pos >= 0, torch.gather(pool_d, 1, _long(pos)),
                         torch.inf)
-    # 3. write own lists (rows of ineligible members are dropped)
-    lvl_idx = max(level - 1, 0)
-    if level0:
-        rows = elems[eligible].long()
-        nbr0[rows] = sel[eligible]
-        kept0[rows] = keptf[eligible]
+    return sel, sel_d, keptf
+
+
+def _write_lists(nbr0, nbr_up, kept0, kept_up, up_slot, rows, ok, lists,
+                 kept, level: int) -> None:
+    """Write (rows, lm) lists and kept flags for element ids ``rows``
+    where ``ok``: level 0 in place of nbr0, upper levels at the elements'
+    up slots (elements without one are dropped)."""
+    if level == 0:
+        r = rows[ok].long()
+        nbr0[r] = lists[ok]
+        kept0[r] = kept[ok]
     else:
-        slots = up_slot[_long(elems)]
-        okw = eligible & (slots >= 0)
-        nbr_up[slots[okw].long(), lvl_idx] = sel[okw]
-        kept_up[slots[okw].long(), lvl_idx] = keptf[okw]
-    # 4. backlinks: group (src → tgt) edges by target, then merge chunks of
+        slots = up_slot[_long(rows)]
+        okw = ok & (slots >= 0)
+        nbr_up[slots[okw].long(), level - 1] = lists[okw]
+        kept_up[slots[okw].long(), level - 1] = kept[okw]
+
+
+def _merge_chunk(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
+                 up_slot, t_c, s_c, level: int, lm: int, sdim: int):
+    """Step 4 for one chunk of unique targets ``t_c`` and their new
+    sources ``s_c``: the wholesale select over old ∪ new.  Returns the
+    new (lists, kept) and the rows that are real targets."""
+    lvl_idx = max(level - 1, 0)
+    if level == 0:
+        okc = t_c >= 0
+        old = torch.where(okc[:, None], nbr0[_long(t_c)], -1)
+        oldk = kept0[_long(t_c)] & okc[:, None]
+    else:
+        slots_c = up_slot[_long(t_c)]
+        okc = (t_c >= 0) & (slots_c >= 0)
+        old = torch.where(okc[:, None], nbr_up[_long(slots_c), lvl_idx], -1)
+        oldk = kept_up[_long(slots_c), lvl_idx] & okc[:, None]
+    new_l, new_k = merge_backlinks_wholesale(
+        kind, metric, values, old, oldk, s_c, torch.where(okc, t_c, -1),
+        lm, sdim)
+    return (torch.where(okc[:, None], new_l, -1), new_k & okc[:, None],
+            okc)
+
+
+def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
+                  up_slot, elems, eligible, level: int, pool_d, pool_i,
+                  m: int, mi: int, smax: int, chunk: int,
+                  sdim: int = 0) -> None:
+    """One connect pass for one level of an insert wave: intra-wave
+    candidates, SelectNeighbors per wave member, own-list writes, then
+    backlink merges grouped by target.  The graph tensors ``nbr0``,
+    ``nbr_up``, ``kept0`` and ``kept_up`` are updated in place, where the
+    reference donates them to its jitted kernel."""
+    lm = 2 * m if level == 0 else m
+    pool_d, pool_i = _connect_pools(kind, metric, values, elems, eligible,
+                                    pool_d, pool_i, mi, sdim)
+    sel, sel_d, keptf = _connect_select(kind, metric, values, pool_d, pool_i,
+                                        lm, sdim)
+    graph = (nbr0, nbr_up, kept0, kept_up, up_slot)
+    _write_lists(*graph, elems, eligible, sel, keptf, level)
+    # backlinks: group (src → tgt) edges by target, then merge chunks of
     # targets with the wholesale select.  Targets are unique, so no chunk
     # reads another chunk's writes and each chunk writes back at once.
     tgt = sel.reshape(-1)
@@ -734,30 +882,62 @@ def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
                                              smax)
     for s in range(0, u_count, chunk):
         t_c = targets[s:min(s + chunk, u_count)]
-        s_c = new_src[s:min(s + chunk, u_count)]
-        if level0:
-            okc = t_c >= 0
-            old = torch.where(okc[:, None], nbr0[_long(t_c)], -1)
-            oldk = kept0[_long(t_c)] & okc[:, None]
-        else:
-            slots_c = up_slot[_long(t_c)]
-            okc = (t_c >= 0) & (slots_c >= 0)
-            old = torch.where(okc[:, None],
-                              nbr_up[_long(slots_c), lvl_idx], -1)
-            oldk = kept_up[_long(slots_c), lvl_idx] & okc[:, None]
-        new_l, new_k = merge_backlinks_wholesale(
-            kind, metric, values, old, oldk, s_c, torch.where(okc, t_c, -1),
-            lm, sdim)
-        new_l = torch.where(okc[:, None], new_l, -1)
-        new_k = new_k & okc[:, None]
-        if level0:
-            rows = t_c[okc].long()
-            nbr0[rows] = new_l[okc]
-            kept0[rows] = new_k[okc]
-        else:
-            rows = slots_c[okc].long()
-            nbr_up[rows, lvl_idx] = new_l[okc]
-            kept_up[rows, lvl_idx] = new_k[okc]
+        new_l, new_k, okc = _merge_chunk(
+            kind, metric, values, *graph, t_c,
+            new_src[s:min(s + chunk, u_count)], level, lm, sdim)
+        _write_lists(*graph, t_c, okc, new_l, new_k, level)
+
+
+def connect_level_sharded(mesh, kind, metric, values, nbr0, nbr_up, kept0,
+                          kept_up, up_slot, elems, eligible, level: int,
+                          pool_d, pool_i, m: int, mi: int, smax: int,
+                          chunk: int, sdim: int = 0) -> None:
+    """Mesh-parallel :func:`connect_level`: the select rows split into one
+    contiguous block a device of ``mesh``, and the backlink chunks (the
+    single-device grid 0, chunk, 2·chunk, … up to the unique targets)
+    deal out to the devices in contiguous runs; the results gather in
+    device order and the same writes apply.  The intra-wave block and the
+    edge grouping are computed once in full.  Every select row and every
+    chunk is the same computation as in :func:`connect_level` (the
+    pairwise products in fixed PAIR_BLOCK shapes), so the graph is
+    bit-identical — the counterpart of the reference's N-process
+    shared-memory build (hnswbuild.c:925-1062), where workers share the
+    search and the UpdateGraphInMemory work."""
+    devs = list(mesh.devices.flat)
+    home = nbr0.device
+    lm = 2 * m if level == 0 else m
+    pool_d, pool_i = _connect_pools(kind, metric, values, elems, eligible,
+                                    pool_d, pool_i, mi, sdim)
+    parts = []
+    for dev, (lo, hi) in zip(devs, shard_rows(elems.shape[0], len(devs))):
+        if hi > lo:
+            parts.append(_connect_select(
+                kind, metric, to_device(values, dev),
+                to_device(pool_d[lo:hi], dev), to_device(pool_i[lo:hi], dev),
+                lm, sdim))
+    sel, sel_d, keptf = (all_gather([p[j] for p in parts], home)
+                         for j in range(3))
+    graph = (nbr0, nbr_up, kept0, kept_up, up_slot)
+    _write_lists(*graph, elems, eligible, sel, keptf, level)
+    tgt = sel.reshape(-1)
+    src = torch.repeat_interleave(torch.where(eligible, elems, -1), lm)
+    targets, new_src, u_count = _group_edges(tgt, src, sel_d.reshape(-1),
+                                             smax)
+    starts = list(range(0, u_count, chunk))
+    merged = []
+    for dev, (c0, c1) in zip(devs, shard_rows(len(starts), len(devs))):
+        if c1 <= c0:
+            continue
+        g_dev = to_device(graph, dev)
+        v_dev = to_device(values, dev)
+        for s in starts[c0:c1]:
+            e = min(s + chunk, u_count)
+            merged.append((s, e) + _merge_chunk(
+                kind, metric, v_dev, *g_dev, to_device(targets[s:e], dev),
+                to_device(new_src[s:e], dev), level, lm, sdim))
+    for s, e, new_l, new_k, okc in merged:
+        _write_lists(*graph, targets[s:e], to_device(okc, home),
+                     to_device(new_l, home), to_device(new_k, home), level)
 
 
 # ---------------------------------------------------------------------------
@@ -815,10 +995,14 @@ def _wave_level_loop(score, qs, lv, entry: int, entry_level: int, ef: int,
 
 def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
                 entry: int, entry_level: int, ef: int, l_unroll: int,
-                expand: int = 1, self_ids=None, sdim: int = 0):
+                expand: int = 1, self_ids=None, sdim: int = 0,
+                vmode: str = "off"):
     """Algorithm 1's search for a wave of elements.  Returns stacked
     per-level pools (l_unroll+1, Q, ef); ``self_ids`` excludes each
-    query's own element from them (vacuum's repair)."""
+    query's own element from them (vacuum's repair).  Each level's beam
+    starts a fresh visited table under ``hash1`` / ``hash2``.  Every
+    query's pools depend on that query alone, so a split of the wave
+    gives the same pools (:func:`wave_search_sharded`)."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
 
@@ -826,13 +1010,50 @@ def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
         return greedy_descent(score, nbrs, qs_, cur, cur_d, lc, max_steps=512)
 
     def beam_fn(lc, qs_, pool_d, pool_i):
+        visited = (visited_init(_nq(qs_), ef, vmode, _dev(qs_))
+                   if vmode != "off" else None)
         pd, pi, _ = search_layer(
             score, lambda e: nbrs(e, lc), qs_, pool_d, pool_i, ef=ef,
-            max_steps=4 * ef + 64, expand=expand)
+            max_steps=4 * ef + 64, expand=expand, visited=visited,
+            vmode=vmode)
         return pd, pi
 
     return _wave_level_loop(score, qs, lv, entry, entry_level, ef, l_unroll,
                             greedy_fn, beam_fn, self_ids)
+
+
+def wave_search_sharded(mesh, kind, metric, values, nbr0, nbr_up, up_slot,
+                        qs, lv, entry: int, entry_level: int, ef: int,
+                        l_unroll: int, expand: int = 1, self_ids=None,
+                        sdim: int = 0, vmode: str = "off"):
+    """:func:`wave_search` for building one graph over a mesh: the wave's
+    queries split into one contiguous block a device of ``mesh`` (the
+    SPMD mapping of the reference's parallel build, where N processes run
+    HnswFindElementNeighbors against one shared-memory graph,
+    hnswbuild.c:925-1062), each block searches a replica of the graph and
+    values on its device, and the per-level pools gather in device order
+    onto the graph's device, replicated (the reference's reason,
+    hnsw_kernels.py:1562-1575: the downstream connect reads whole pools).
+    Each query's search is independent of the others, so the pools are
+    :func:`wave_search`'s, bit for bit."""
+    devs = list(mesh.devices.flat)
+    home = nbr0.device
+    outs = []
+    for dev, (lo, hi) in zip(devs, shard_rows(len(lv), len(devs))):
+        if hi <= lo:
+            continue
+        q = (tuple(t[lo:hi] for t in qs) if isinstance(qs, tuple)
+             else qs[lo:hi])
+        outs.append(wave_search(
+            kind, metric, to_device(values, dev), to_device(nbr0, dev),
+            to_device(nbr_up, dev), to_device(up_slot, dev),
+            to_device(q, dev), lv[lo:hi], entry, entry_level, ef=ef,
+            l_unroll=l_unroll, expand=expand,
+            self_ids=(to_device(self_ids[lo:hi], dev)
+                      if self_ids is not None else None),
+            sdim=sdim, vmode=vmode))
+    return (all_gather([o[0] for o in outs], home, dim=1),
+            all_gather([o[1] for o in outs], home, dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -867,7 +1088,8 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
                  row_valid, fmask, qs, entry: int, entry_level: int, ef: int,
                  k: int, heaptids: int, expand: int = 1, packed_vals=None,
                  packed_scale=None, packed_norm2=None, rerank: bool = False,
-                 sdim: int = 0) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                 sdim: int = 0, vmode: str = "hash2", max_steps: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Algorithm 5 (hnswscan.c:25-56): greedy descent through the upper
     levels, the ef beam at layer 0, then heap-TID expansion.
 
@@ -880,6 +1102,10 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     quantizes them again each hop to the same values.  With ``rerank``
     the final pool is re-scored against the exact f32 values, so a bf16
     or int8 cache changes only pool admission, never the emitted order.
+    ``vmode`` is the layer-0 visited set, ``hash2`` by default as in the
+    reference's signature (a plain scan passes :func:`visited_mode`);
+    ``max_steps`` caps the layer-0 hops (0: the 8·ef + 64 of Algorithm
+    2's loop bound).
     Returns (stored distances, row ids, layer-0 hops).  Only a dense index
     has packed values (the reference packs dense rows only,
     hnsw.py:1203)."""
@@ -898,10 +1124,12 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
             qc, sq, q2 = int8_query(qs, packed_scale)
             int8 = (qc, sq, q2, packed_norm2, packed_scale)
         packed = (packed_vals, qs.contiguous(), nbr0, int8)
+    visited = (visited_init(nq, ef, vmode, _dev(qs)) if vmode != "off"
+               else None)
     pool_d, pool_i, steps = search_layer(
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
-        ef=ef, max_steps=8 * ef + 64, expand=expand,
-        packed=packed, metric=metric)
+        ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
+        packed=packed, metric=metric, visited=visited, vmode=vmode)
     if rerank:
         pool_d = score(qs, pool_i)  # exact f32 distances for the final pool
         pool_d, order = torch.sort(pool_d, dim=1, stable=True)

@@ -12,7 +12,9 @@ order (``post_values``, ``(blocks, cs, D)`` in the table's dtype, formed:
 normalized for cosine) with each slot's squared norm (``post_vsq``).
 Build phases mirror the reference's four (ivfflat.c:64-80): sampling,
 k-means (:mod:`.ivf_kmeans`), assigning tuples (one product per chunk of
-rows), loading tuples (one stable sort by list on the host).
+rows), loading tuples (one stable sort by list on the host).  With a
+``mesh`` of more than one device, k-means runs sample-sharded over it
+(``parallel.sharded.train_centers_sharded``).
 
 Search (ivfscan.c): distances to all centers → the ``probes`` nearest
 lists → exact distances over their postings → top-k, with iterative
@@ -93,7 +95,8 @@ class IVFFlatIndex:
 
     def __init__(self, table: DenseTable, metric: Metric,
                  lists: int = DEFAULT_LISTS, seed: int = 0,
-                 build: bool = True, notice_hook=None, progress=None):
+                 build: bool = True, notice_hook=None, progress=None,
+                 mesh=None):
         if not MIN_LISTS <= lists <= MAX_LISTS:
             raise DataException(
                 f'value {lists} out of bounds for option "lists"')
@@ -122,6 +125,10 @@ class IVFFlatIndex:
         self.table = table
         self.device = table.device
         self.metric = metric
+        #: optional ``parallel.Mesh``: with more than one device, k-means
+        #: trains data-parallel over it (sample-sharded Lloyd's rounds,
+        #: the reference's parallel k-means phase, ivfbuild.c:829-966)
+        self.mesh = mesh
         self.lists = lists
         self.seed = seed
         self.notice_hook = notice_hook or (lambda msg: None)
@@ -211,6 +218,17 @@ class IVFFlatIndex:
                         np.linalg.norm(c, axis=1, keepdims=True), 1e-30)
                 centers = torch.as_tensor(c, device=self.device)
                 self.kmeans_iters = 0
+            elif self.mesh is not None and self.mesh.size > 1:
+                from ..parallel.sharded import _train_centers_sharded
+
+                s = samples.float()
+                if self._normalized:
+                    s = s / torch.clamp(torch.sqrt(torch.sum(
+                        s * s, dim=1, keepdim=True)), min=1e-30)
+                centers, self.kmeans_iters = _train_centers_sharded(
+                    self.mesh, s, self.lists, spherical=self._spherical,
+                    binary=self._is_bit, seed=self.seed)
+                centers = centers.to(self.device)
             else:
                 centers, self.kmeans_iters = train_centers(
                     samples, self.lists, spherical=self._spherical,

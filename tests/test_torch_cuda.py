@@ -9,7 +9,10 @@ scans); K4 (bit_topk) and K5 (bit_point_scores) equal to their plain
 versions, and the bit and sparse indexes on CUDA against the CPU; K2's
 int8 slab equal to its plain version (L1 within ``int8_l1_bound``), and
 the grouped exact engine on the card against the tiled scan; the
-planner's calibrated pick against the timed paths.
+planner's calibrated pick against the timed paths; the mesh paths on four
+shards of one card (the sharded exact search through K1 against
+FlatIndex, the mesh build bit for bit, the fan-out against the 1-D
+search) and on two cards where there are two.
 Every test needs an NVIDIA Hopper GPU and ``nvcc`` (the kernels build at
 first use) and skips elsewhere.
 
@@ -812,3 +815,102 @@ def test_calibrated_pick_is_fastest_on_card(dev):
     spread = max(max(v) / min(v) for v in times.values())
     best = min(min(v) for v in times.values())
     assert min(times[pick.kind]) <= best * spread, (pick.kind, times)
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths on the card: four shards of cuda:0, and two cards
+# ---------------------------------------------------------------------------
+
+
+def _graphs_equal(a, b):
+    for name in ("nbr0", "nbr_up", "kept0", "kept_up"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    np.testing.assert_array_equal(a.levels, b.levels)
+    assert (a.entry, a.entry_level) == (b.entry, b.entry_level)
+
+
+def test_sharded_exact_on_card_matches_flat(dev):
+    """Four shards of 5,000 rows on one card, each through K1 (one launch
+    a shard), answer as FlatIndex does over the whole table."""
+    from pgvector_tpu_torch import parallel as TP
+
+    rng = np.random.default_rng(20)
+    db = rng.normal(size=(20_000, 64)).astype(np.float32)
+    q = rng.normal(size=(100, 64)).astype(np.float32)
+    t = DenseTable(64, device=dev)
+    t.insert(db)
+    t.delete([5, 7001])
+    mesh = TP.make_mesh(4, devices=[dev] * 4)
+    for metric in (Metric.L2, Metric.IP):
+        e_d, e_i = FlatIndex(t, metric).search(q, 10)
+        launches = fused_topk.launches
+        d, i = TP.ShardedFlatIndex(mesh, t, metric).search(q, 10)
+        assert fused_topk.launches == launches + 4
+        assert_same_topk(e_d, e_i, d, i)
+        assert not np.isin(i, [5, 7001]).any()
+
+
+def test_mesh_build_on_card_bit_identical(dev):
+    """The mesh build on [cuda:0] * 4 (waves of 1,024: 256 queries a
+    device) gives the single-device graph bit for bit, dense and bit; the
+    2 × 2 fan-out of a device-sharded index equals its 1-D search."""
+    from pgvector_tpu_torch import parallel as TP
+
+    rng = np.random.default_rng(21)
+    mesh = TP.make_mesh(4, devices=[dev] * 4)
+    dense = DenseTable(32, device=dev)
+    dense.insert(rng.normal(size=(3000, 32)).astype(np.float32))
+    bits = BitTable(256, device=dev)
+    bits.insert(rng.random((3000, 256)) > 0.5)
+    for table, metric in ((dense, Metric.L2), (bits, Metric.HAMMING)):
+        kw = dict(m=16, ef_construction=64, wave_size=1024, dedup=False,
+                  seed=3)
+        one = HNSWIndex(table, metric, **kw)
+        par = HNSWIndex(table, metric, build_mesh=mesh, **kw)
+        _graphs_equal(one, par)
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    kw = dict(m=8, ef_construction=32, wave_size=256, seed=4)
+    base = TP.DeviceShardedHNSWIndex(TP.make_mesh(2, devices=[dev] * 2),
+                                     dense, Metric.L2, **kw)
+    fan = TP.DeviceShardedHNSWIndex(TP.make_mesh2(2, 2, devices=[dev] * 4),
+                                    dense, Metric.L2, qaxis="qp", **kw)
+    d1, r1 = base.search(q, 10, ef_search=40)
+    d2, r2 = fan.search(q, 10, ef_search=40)
+    np.testing.assert_array_equal(r1, r2)
+    np.testing.assert_array_equal(d1, d2)
+
+
+def test_two_card_mesh(dev):
+    """A mesh over two cards answers as two shards of one card (the
+    sharded exact search, the device-sharded HNSW and IVFFlat indexes),
+    and its mesh build gives the single-device graph."""
+    from pgvector_tpu_torch import parallel as TP
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(22)
+    db = rng.normal(size=(12_000, 32)).astype(np.float32)
+    q = rng.normal(size=(50, 32)).astype(np.float32)
+    t = DenseTable(32, device=dev)
+    t.insert(db)
+    two = TP.make_mesh(2)
+    one = TP.make_mesh(2, devices=[dev] * 2)
+    d1, i1 = TP.sharded_exact_search(one, Metric.L2, t.data[: t.count], q, 10)
+    d2, i2 = TP.sharded_exact_search(two, Metric.L2, t.data[: t.count], q, 10)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2)
+    kw = dict(m=8, ef_construction=32, wave_size=512, dedup=False, seed=5)
+    _graphs_equal(HNSWIndex(t, Metric.L2, **kw),
+                  HNSWIndex(t, Metric.L2, build_mesh=two, **kw))
+    for cls, opts, search in (
+            (TP.DeviceShardedHNSWIndex,
+             dict(m=8, ef_construction=32, wave_size=512, seed=6),
+             dict(ef_search=40)),
+            (TP.DeviceShardedIVFFlatIndex, dict(lists=16, seed=6),
+             dict(probes=4))):
+        a = cls(one, t, Metric.L2, **opts)
+        b = cls(two, t, Metric.L2, **opts)
+        assert b.subs[1].device == torch.device("cuda", 1)
+        d1, r1 = a.search(q, 10, **search)
+        d2, r2 = b.search(q, 10, **search)
+        np.testing.assert_array_equal(r1, r2)
+        np.testing.assert_array_equal(d1, d2)

@@ -6,9 +6,11 @@ exact engine over a bf16 table, the value types' text and binary I/O and
 aggregates, with checkpoint round trips, and the SQL-facing surface (a
 Relation loaded by COPY through the native codec, its HNSW and btree
 indexes, the planner, EXPLAIN ANALYZE, the batching executor, a
-replication log replayed onto a replica, the SQL functions) succeeds,
-and neither ``jax`` nor ``pgvector_tpu`` is loaded.  Building the codec
-writes only under the port's own build directory."""
+replication log replayed onto a replica, the SQL functions) and the mesh
+paths (sharded and dim-sharded exact search, a device-sharded HNSW index
+and the mesh build on four CPU shards; no mesh without a card or named
+devices) succeeds, and neither ``jax`` nor ``pgvector_tpu`` is loaded.
+Building the codec writes only under the port's own build directory."""
 
 import os
 import subprocess
@@ -126,6 +128,29 @@ _SCRIPT = textwrap.dedent("""
         assert replication.apply_deltas(rt, [], tmp + "/log") == 3
         assert torch.equal(rt.data[: rt.count], rel.table.data[: rt.count])
     assert functions.l2_distance(P.Vector([0, 0]), P.Vector([3, 4])) == 5.0
+    # the mesh paths: four shards on the CPU
+    from pgvector_tpu_torch import parallel as PP
+    mesh = PP.make_mesh(4, devices=["cpu"] * 4)
+    d, r = PP.sharded_exact_search(mesh, P.Metric.L2, db, db[:5], 3)
+    assert (r[:, 0].numpy() == np.arange(5)).all(), r
+    d, r = PP.dim_sharded_exact_search(mesh, P.Metric.IP, db, db[:5], 3)
+    assert r.shape == (5, 3), r.shape
+    dsh = PP.DeviceShardedHNSWIndex(mesh, table, P.Metric.L2, m=8,
+                                    ef_construction=32, wave_size=512)
+    d, r = dsh.search(db[:5], 3, ef_search=32)
+    assert (r[:, 0] == np.arange(5)).all(), r
+    built = P.HNSWIndex(table, P.Metric.L2, m=8, ef_construction=32,
+                        wave_size=512, dedup=False, build_mesh=mesh)
+    assert torch.equal(built.nbr0, P.HNSWIndex(
+        table, P.Metric.L2, m=8, ef_construction=32, wave_size=512,
+        dedup=False).nbr0)
+    if not torch.cuda.is_available():
+        try:
+            PP.make_mesh()
+        except P.DataException:
+            pass
+        else:
+            raise AssertionError("a mesh without a card and devices")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "pgvector_tpu")
                     and sys.modules[m] is not None)
