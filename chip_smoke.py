@@ -7,12 +7,19 @@ The path is the one bench.py measures for the JAX package: a 1M × 128 f32
 DenseTable of bench.make_data's clustered surrogate (seed 0), the exact
 L2 top-10 ground truth through FlatIndex (kernel K1, fused_topk), an HNSW
 wave build (m=16, ef_construction=64, wave 1024, build beam 4, heap-TID
-dedup on as by default), then the layer-0 beam search over the packed
+dedup on as by default; every SelectNeighbors through kernel K3,
+select_neighbors, and every beam hop through K6, gather_hop; its search
+and connect split with a device sync ending each, and its middle wave
+through torch.profiler), then the layer-0 beam search over the packed
 slab cache with query beam 8 at ef 40 and 100 (kernel K2, packed_hop: one
 launch a hop), recall@10 and QPS.  Before that it builds the CUDA kernels from
 pgvector_tpu_torch/csrc and holds K1 and K2's tail (hop_tail) against
 their plain PyTorch versions on the card; after it, K2 itself on hop
-states captured from the 1M graph.  Last, the IVFFlat lane of bench.py
+states captured from the 1M graph, K3 bit for bit on the selects of a
+build wave and on pools of ef_construction 1,000 (C = 1,016, past the
+shared-memory route), and K6 on a build wave's beam hops.  Every later
+phase counts K3 and K6 against the selects and dense row-gather hops it
+ran.  Last, the IVFFlat lane of bench.py
 on the same table (lists = n / 1000, seed 1): the build split into its
 phases, recall@10 and QPS at probes 1, 10 and 32, exhaustive probing
 against K1's ground truth, the two probe routes against each other,
@@ -1781,6 +1788,187 @@ def mesh_phase(db, qs, smi, dev, k=10, n_hnsw=200_000, n_build=50_000,
     return launches
 
 
+class BuildKernels:
+    """The build's two loops and their kernels, counted for the whole run:
+    every SelectNeighbors call (``hnsw_kernels.select_neighbors``, the
+    name every select calls) beside K3's launches, and every row-gather
+    hop (a ``_hop_body`` call without the packed cache, the visited set
+    ``off`` and no discarded pool; ``dense`` those of a dense index) beside
+    K6's.  ``capture(kind, args)``, where set, sees each select's inputs
+    ("select"), each beam's start ("beam") and each K6 call's inputs
+    ("hop")."""
+
+    def __init__(self):
+        from pgvector_tpu_torch.index import hnsw_kernels as K
+        from pgvector_tpu_torch.ops.gather_hop import gather_hop
+        from pgvector_tpu_torch.ops.select_neighbors import select_neighbors
+
+        self.k3, self.k6 = select_neighbors, gather_hop
+        self.capture = None
+        self.reset()
+        sel, hop, beam, k6 = (K.select_neighbors, K._hop_body,
+                              K.search_layer, K.gather_hop)
+
+        def counted_sel(*a, **kw):
+            self.calls["select"] += 1
+            if self.capture:
+                self.capture("select", a)
+            return sel(*a, **kw)
+
+        def counted_hop(*a, **kw):
+            if (kw.get("packed") is None and kw.get("disc") is None
+                    and kw.get("vmode", "off") == "off"):
+                self.calls["row_gather_hops"] += 1
+                self.calls["dense_hops"] += kw.get("rows") is not None
+            return hop(*a, **kw)
+
+        def counted_beam(*a, **kw):
+            if self.capture:
+                self.capture("beam", a)
+            return beam(*a, **kw)
+
+        def captured_k6(*a):
+            if self.capture:
+                self.capture("hop", a)
+            return k6(*a)
+
+        K.select_neighbors, K._hop_body = counted_sel, counted_hop
+        K.search_layer, K.gather_hop = counted_beam, captured_k6
+
+    def reset(self):
+        """Every count to 0."""
+        self.k3.launches = self.k6.launches = 0
+        self.calls = {"select": 0, "row_gather_hops": 0, "dense_hops": 0}
+
+    def read(self, phase, all_dense=False):
+        """The counts since the last reset; fails unless every select
+        launched K3 and every dense row-gather hop K6 (with ``all_dense``
+        every row-gather hop was a dense one)."""
+        c = dict(self.calls, select_neighbors=self.k3.launches,
+                 gather_hop=self.k6.launches)
+        check(c["select_neighbors"] == c["select"],
+              f"phase {phase}: every select through K3 "
+              f"({c['select_neighbors']} launches for {c['select']} calls)")
+        check(c["gather_hop"] == c["dense_hops"],
+              f"phase {phase}: every dense row-gather hop through K6 "
+              f"({c['gather_hop']} launches for {c['dense_hops']} hops)")
+        check(not all_dense or c["dense_hops"] == c["row_gather_hops"],
+              f"phase {phase}: every row-gather hop is a dense one")
+        return c
+
+
+def select_vs_plain(idx, captured, dev, efc=1000, rows=256):
+    """K3 against its plain version, bit for bit, on the selects captured
+    from a build wave (``captured``: inputs by shape) and on pools of
+    ``efc`` searched on the built graph for ``rows`` of its elements (the
+    connect's C = efc + m, past the shared-memory route).  Each case timed
+    (CUDA events, and the kernel alone by torch.profiler) beside its plain
+    version and its bound: the pair block and the flags read once, the
+    outputs written once."""
+    import numpy as np
+    import torch
+
+    from pgvector_tpu_torch import Metric
+    from pgvector_tpu_torch.index import hnsw_kernels as K
+    from pgvector_tpu_torch.ops.select_neighbors import (
+        select_neighbors, select_neighbors_plain, staged)
+
+    check(captured, "captured the build's selects")
+    cases = [("build", a) for a in captured.values()]
+    live = np.flatnonzero(idx.levels >= 0)
+    elems = torch.as_tensor(live[:: max(len(live) // rows, 1)][:rows],
+                            dtype=torch.int32, device=dev)
+    pd, pi = K.wave_search(
+        "dense", Metric.L2, idx.values, idx.nbr0, idx.nbr_up,
+        idx._up_slot_dev, idx.values[elems.long()],
+        np.zeros(len(elems), np.int32), idx.entry, idx.entry_level, ef=efc,
+        l_unroll=idx._l_unroll, expand=4, self_ids=elems)
+    pd, pi = K._connect_pools("dense", Metric.L2, idx.values, elems,
+                              torch.ones_like(elems, dtype=torch.bool),
+                              pd[0], pi[0], idx.m, 0)
+    pair = K._pairwise_dists("dense", Metric.L2, idx.values, pi)
+    cases.append((f"ef_construction {efc}",
+                  [pd.contiguous(), pair, pi >= 0, 2 * idx.m, None]))
+    out = []
+    for source, (base, pair_d, valid, lm, forced) in cases:
+        p1, k1 = select_neighbors(base, pair_d, valid, lm, forced)
+        p0, k0 = select_neighbors_plain(base, pair_d, valid, lm, forced)
+        torch.cuda.synchronize()
+        check(torch.equal(p1, p0) and torch.equal(k1, k0),
+              f"K3 equals its plain version bit for bit at "
+              f"{tuple(pair_d.shape)}, lm {lm}")
+        t, c = base.shape
+        b, by = bound_ms(4 * t * c * c + 6 * t * c + 5 * t * lm)
+        out.append({
+            "source": source, "rows": t, "c": c, "lm": lm,
+            "forced": forced is not None, "staged": staged(c),
+            "equal": True, "kept": int(k1.sum()),
+            "ms": cuda_ms(lambda: select_neighbors(base, pair_d, valid, lm,
+                                                   forced)),
+            "kernel_only_ms": kernel_only_ms(lambda: select_neighbors(
+                base, pair_d, valid, lm, forced))[0],
+            "plain_ms": cuda_ms(lambda: select_neighbors_plain(
+                base, pair_d, valid, lm, forced)),
+            "bound_ms": b, "bound_by": by})
+    check(any(not r["staged"] for r in out), "a case past shared memory")
+    return out
+
+
+def gather_hop_vs_plain(captured):
+    """K6 against its plain version on the beam hops captured from a build
+    wave (``captured``: (beam, hop) -> inputs; the last beam is level 0):
+    ids apart from ties, distances within torch_parity's ATOL / RTOL (K2's
+    f32 card test).  Level 0's hop 4 timed (CUDA events, and the kernel
+    alone by torch.profiler) beside its plain version and its bound: the pool read and written, the lists, the
+    queries and each row the hop must score (distinct, not in the pool)
+    read once."""
+    import numpy as np
+    import torch
+
+    from torch_parity import assert_same_pool
+    from pgvector_tpu_torch.ops.gather_hop import (
+        dedupe_hop, gather_hop, gather_hop_plain)
+
+    check(captured, "captured the build's hops")
+    level0 = max(b for b, _ in captured)
+    out = []
+    for (beam, hop), st in sorted(captured.items()):
+        d1, p1 = gather_hop(*st)
+        d0, p0 = gather_hop_plain(*st)
+        torch.cuda.synchronize()
+        d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
+        assert_same_pool(d0, p0, d1, p1)
+        fin = np.isfinite(d0)
+        row = {"beam": beam, "level0": beam == level0, "hop": hop,
+               "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max())
+               if fin.any() else 0.0,
+               "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())}
+        if beam == level0 and hop == 4:
+            pool_d, pool_p, sel, nb, rows, qs, ef = st[:7]
+            q = pool_d.shape[0]
+            nbrs = torch.where(sel[:, None] >= 0, nb, -1).reshape(q, -1)
+            if sel.numel() > q:
+                nbrs = dedupe_hop(nbrs)
+            in_pool = torch.any(
+                nbrs[:, :, None] == (pool_p >> 1)[:, None, :], dim=2)
+            scored = int(((nbrs >= 0) & ~in_pool).sum())
+            dim = rows.shape[1]
+            b, by = bound_ms(16 * q * ef + 4 * sel.numel() + 4 * nb.numel()
+                             + qs.element_size() * qs.numel()
+                             + rows.element_size() * dim * scored,
+                             2.0 * dim * scored)
+            row.update(timed=True, queries=q, expand=sel.numel() // q,
+                       width=nb.shape[1], scored=scored,
+                       ms=cuda_ms(lambda: gather_hop(*st)),
+                       kernel_only_ms=kernel_only_ms(
+                           lambda: gather_hop(*st))[0],
+                       plain_ms=cuda_ms(lambda: gather_hop_plain(*st)),
+                       bound_ms=b, bound_by=by)
+        out.append(row)
+    check(any(r.get("timed") for r in out), "timed level 0's hop 4")
+    return out
+
+
 def _profiled_waves(index, orig_sl):
     """Wrap ``index._insert_wave`` for a build: the middle wave through
     torch.profiler (with the candidates its beams could score), every
@@ -1790,10 +1978,10 @@ def _profiled_waves(index, orig_sl):
 
     from pgvector_tpu_torch.index import hnsw_kernels as K
 
-    out = {"ms": [], "calls": 0}
     fn = index._insert_wave
     rows = index.table.count
     middle = max(rows // max(index._effective_wave_size(), 1) // 2, 1)
+    out = {"ms": [], "calls": 0, "middle": middle}
     m2 = 2 * index.m
 
     def call(elems, lv):
@@ -2411,6 +2599,7 @@ def main():
     emit({"phase": "hop_tail_vs_plain", "queries": q2, "cases": k2_tail})
 
     # ---- 4. the main path -------------------------------------------------
+    bk = BuildKernels()  # K3 and K6 counted (and captured) from here on
     fused_topk.launches = 0
     packed_hop.launches = 0
     packed_hop.launches_by_slab = dict.fromkeys(packed_hop.launches_by_slab, 0)
@@ -2438,13 +2627,50 @@ def main():
     cap = 1
     while cap < args.n:
         cap *= 2
-    timers.enabled = True  # host-clock split of the build's phases
+    # the build: its middle wave through torch.profiler (every other wave
+    # timed alone), the wave after it captured for K3's and K6's checks,
+    # and each wave's search and connect ended by a device sync, so the
+    # host timers split the build as the device does
+    timers.reset()
+    timers.enabled = True
+    os.environ["PGVECTOR_TPU_PHASE_SYNC"] = "1"
     t0 = time.perf_counter()
     rel = Relation(table)  # CREATE INDEX ... USING hnsw (phase 10 adds more)
     idx = rel.create_index("hnsw", Metric.L2, m=16, ef_construction=64,
-                           wave_size=1024, beam_expand=4, capacity=cap)
+                           wave_size=1024, beam_expand=4, capacity=cap,
+                           build=False)
+    wave4 = _profiled_waves(idx, hnsw_kernels.search_layer)
+    cap4 = {"select": {}, "hops": {}, "beam": -1, "hop": 0}
+
+    def capture(kind, a):
+        if wave4["calls"] != wave4["middle"] + 1:
+            return
+        if kind == "select":  # the first select of each shape
+            key = (tuple(a[1].shape), a[3], a[4] is not None)
+            cap4["select"].setdefault(key, [
+                t.clone() if torch.is_tensor(t) else t for t in a])
+        elif kind == "beam":
+            cap4["beam"] += 1
+            cap4["hop"] = 0
+        else:  # hops 0, 4 and 12 of every beam; level 0's is the last
+            if cap4["hop"] in (0, 4, 12):
+                cap4["hops"][(cap4["beam"], cap4["hop"])] = [
+                    t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
+                    else t for t in a]
+            cap4["hop"] += 1
+
+    bk.capture = capture
+    try:
+        idx.build()
+    finally:
+        bk.capture = None
+        del idx._insert_wave
+        os.environ.pop("PGVECTOR_TPU_PHASE_SYNC")
     build_s = time.perf_counter() - t0
     timers.enabled = False
+    build4 = bk.read("4", all_dense=True)
+    check(build4["select_neighbors"] > 0 and build4["gather_hop"] > 0,
+          "the build launched K3 and K6")
     idx.beam_expand = 8  # query-side beam, as bench.py:518
     plan = idx._packed_plan()
     f32_copy = idx.cap_e * 2 * idx.m * 128 * 4
@@ -2480,10 +2706,24 @@ def main():
     check(launches["packed_hop"] == hops,
           f"every layer-0 hop went through K2: {launches['packed_hop']} "
           f"launches for {hops} hops")
+    bk.read("4")  # the searches ran no select and no row-gather hop
+    check(bk.k3.launches == build4["select_neighbors"]
+          and bk.k6.launches == build4["gather_hop"],
+          "the searches launched neither K3 nor K6")
+    split = timers.report()
+    search_s = split["hnsw.wave.search"]["total_s"]
+    connect_s = split["hnsw.wave.connect"]["total_s"]
     emit({"phase": "main_path", "n": args.n, "queries": len(qs),
           "reduced": args.n != 1_000_000, "data_s": data_s,
           "exact_gt_s": gt_s, "build_s": build_s,
-          "build_phases": {k: v["total_s"] for k, v in timers.report().items()},
+          "build_phases": {k: v["total_s"] for k, v in split.items()},
+          "build_split": {"search_s": search_s, "connect_s": connect_s,
+                          "search_share": search_s / build_s,
+                          "connect_share": connect_s / build_s,
+                          "synchronized": "PGVECTOR_TPU_PHASE_SYNC=1"},
+          "build_wave": _wave_row("dense build wave", wave4, 128 * 4, 128,
+                                  F32_FLOPS, 64 + 16),
+          "build_kernels": build4,
           "packed": str(plan).replace("torch.", ""), "sweep": sweep,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, "layer0_hops": hops})
@@ -2540,6 +2780,18 @@ def main():
                     "bound_ms": k2_bound, "bound_by": k2_by}})
     w_tail = 256
     tail_bound, tail_by = bound_ms(8 * q2 * (2 * 100 + w_tail))
+
+    # ---- 5b. K3 and K6 against their plain versions on the build's inputs
+    # (the selects and beam hops of the wave after the profiled one), and
+    # K3 on pools of ef_construction 1,000 searched on the built graph
+    # (C = 1,000 + 16, past the shared-memory route)
+    k3_rows, k6_rows = select_vs_plain(idx, cap4["select"], dev), \
+        gather_hop_vs_plain(cap4["hops"])
+    emit({"phase": "select_vs_plain", "tolerance": "bit for bit",
+          "cases": k3_rows})
+    emit({"phase": "gather_hop_vs_plain", "atol": ATOL, "rtol": RTOL,
+          "cases": k6_rows})
+    cap4.clear()
     if args.profile:
         for ef in (40, 100):
             emit(profile_search(idx, qs, k, ef))
@@ -2552,14 +2804,18 @@ def main():
 
     # ---- 7. the HNSW index as a live index (it changes the table) --------
     recall4 = {s["ef"]: s["recall_at_10"] for s in sweep}
+    bk.reset()
     live_phase(idx, table, qs, k, recall4, smi)
+    build_by_phase = {"4": build4, "7": bk.read("7")}
 
     # ---- 10. the SQL-facing surface on phase 4's Relation ----------------
     # after the churn, on the live index: phase 7's floors (0.02 under
     # phase 4's recall) and phase 6's at probes 10 (the 1M lane's)
+    bk.reset()
     launches10 = relation_phase(
         rel, qs, k, {ef: r - 0.02 for ef, r in recall4.items()},
         0.99 if args.n == 1_000_000 else 0.0, smi)
+    build_by_phase["10"] = bk.read("10")
 
     # ---- 8. the bit and sparse types, on tables of their own -------------
     # free phase 4's index with its slab cache (the captured hop states
@@ -2568,15 +2824,29 @@ def main():
     del rel, idx, table, flat, data, sq, qs_dev, states, st, pd, pi, b, b_user
     gc.collect()
     torch.cuda.empty_cache()
+    bk.reset()
     bit_rows = bit_sparse_phase(db, qs, k, smi, args.n, dev)
+    build_by_phase["8"] = bk.read("8")
 
     # ---- 9. halfvec at GIST-1M's width, on a table of its own -----------
+    bk.reset()
     int8_row = halfvec_phase(smi, dev, n=min(200_000, args.n))
+    build_by_phase["9"] = bk.read("9", all_dense=True)
 
     # ---- 11. the mesh paths: four shards of the card ---------------------
+    bk.reset()
     launches11 = mesh_phase(db, qs, smi, dev, k,
                             n_hnsw=min(200_000, args.n),
                             n_build=min(50_000, args.n))
+    build_by_phase["11"] = bk.read("11")
+    emit({"phase": "build_kernels", "by_phase": build_by_phase})
+
+    def by_phase(name):
+        return {ph: c[name] for ph, c in build_by_phase.items()}
+
+    k3_main = max(k3_rows, key=lambda r: r["rows"] * r["c"] ** 2
+                  if r["source"] == "build" else -1)
+    k6_main = next(r for r in k6_rows if r.get("timed"))
 
     emit({"kernels": [
         {"name": "fused_topk", "route": "cuda",
@@ -2615,6 +2885,35 @@ def main():
          "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None},
         *bit_rows,
         int8_row,
+        {"name": "select_neighbors", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/select_neighbors.cu",
+         "replaces": "pgvector_tpu/index/hnsw_kernels.py:804 "
+                     "(select_neighbors under select_neighbors_batch :855, "
+                     "its fori_loop :844; an XLA program, no Pallas "
+                     "kernel)",
+         "launches": sum(by_phase("select_neighbors").values()),
+         "launches_by_phase": by_phase("select_neighbors"),
+         "on_main_path": True, "max_abs_err": 0.0,
+         "equal": "bit for bit (positions and kept flags)",
+         "ms": k3_main["ms"], "kernel_only_ms": k3_main["kernel_only_ms"],
+         "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": None,
+         "timed_shape": [k3_main["rows"], k3_main["c"], k3_main["lm"]]},
+        {"name": "gather_hop", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/gather_hop.cu",
+         "replaces": "pgvector_tpu/index/hnsw_kernels.py:401 (the "
+                     "row-gather branch of _hop_body, _hop_merge :554, "
+                     "under _hop_step :588; an XLA program, no Pallas "
+                     "kernel)",
+         "launches": sum(by_phase("gather_hop").values()),
+         "launches_by_phase": by_phase("gather_hop"),
+         "on_main_path": True,
+         "max_abs_err": max(r["max_abs_err"] for r in k6_rows),
+         "ms": k6_main["ms"], "kernel_only_ms": k6_main["kernel_only_ms"],
+         "plain_ms": k6_main["plain_ms"],
+         "bound_ms": k6_main["bound_ms"], "bound_by": k6_main["bound_by"],
+         "library_ms": None},
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

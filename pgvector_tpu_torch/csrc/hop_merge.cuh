@@ -1,5 +1,5 @@
-// The hop tail of the packed HNSW beam search, shared by hop_tail.cu and
-// packed_hop.cu: the device half of pgvector_tpu/ops/pallas_hop.py's
+// The hop tail of the HNSW beam search, shared by hop_tail.cu, packed_hop.cu
+// and gather_hop.cu: the device half of pgvector_tpu/ops/pallas_hop.py's
 // _tail_kernel.  Per query row, over `width` lanes in shared memory laid
 // out as [pool (id*2 | expanded) | W scored candidates | padding]:
 //   1. order the lanes by (id, position) and mask every later copy of an
@@ -124,12 +124,14 @@ __device__ void bitonic(K (&key)[R], int (&pos)[R], int* xbuf, int width) {
   }
 }
 
-// The tail of one row.  On entry (after a barrier) s_d / s_pk hold the
+// Pass 1 of the tail.  On entry (after a barrier) s_d / s_pk hold the
 // width lanes' distances and packed ids, padding lanes BIG / -2; blockDim.x
-// * R == width.  s_d is overwritten.  Writes the row's ef outputs.
+// * R == width.  Every later copy of an id, every empty lane and every
+// +-inf distance becomes BIG in s_d, so the pool's copy of an id and its
+// expanded flag survive.  Ends with a barrier.
 template <int R>
-__device__ void hop_merge(float* s_d, const int* s_pk, int* xbuf, int width,
-                          int ef, float* out_d, int* out_p) {
+__device__ void mask_repeats(float* s_d, const int* s_pk, int* xbuf,
+                             int width) {
   const int base = threadIdx.x * R;
   int ikey[R], pos[R];
   float dist[R];
@@ -138,7 +140,7 @@ __device__ void hop_merge(float* s_d, const int* s_pk, int* xbuf, int width,
     ikey[r] = lane_id(s_pk[base + r]);
     pos[r] = base + r;
   }
-  // pass 1: (id, position) order
+  // (id, position) order
   bitonic<R>(ikey, pos, xbuf, width);
   __syncthreads();  // the sort's last exchange reads are done
 #pragma unroll
@@ -157,7 +159,16 @@ __device__ void hop_merge(float* s_d, const int* s_pk, int* xbuf, int width,
 #pragma unroll
   for (int r = 0; r < R; ++r) s_d[pos[r]] = dist[r];
   __syncthreads();
-  // pass 2: (distance, position) order
+}
+
+// Pass 2: the (distance, position) order of the lanes, the first ef
+// emitted (+inf / -2 where the lane is BIG).  Starts after a barrier.
+template <int R>
+__device__ void emit_nearest(const float* s_d, const int* s_pk, int* xbuf,
+                             int width, int ef, float* out_d, int* out_p) {
+  const int base = threadIdx.x * R;
+  int pos[R];
+  float dist[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     dist[r] = s_d[base + r];
@@ -173,6 +184,15 @@ __device__ void hop_merge(float* s_d, const int* s_pk, int* xbuf, int width,
       out_p[i] = v >= BIG ? -2 : s_pk[pos[r]];
     }
   }
+}
+
+// The tail of one row: pass 1, then pass 2.  s_d is overwritten.  Writes
+// the row's ef outputs.
+template <int R>
+__device__ void hop_merge(float* s_d, const int* s_pk, int* xbuf, int width,
+                          int ef, float* out_d, int* out_p) {
+  mask_repeats<R>(s_d, s_pk, xbuf, width);
+  emit_nearest<R>(s_d, s_pk, xbuf, width, ef, out_d, out_p);
 }
 
 }  // namespace pgvt

@@ -1,0 +1,145 @@
+// The f32 / bf16 / f16 row scorer of the HNSW beam hop, shared by packed_hop.cu
+// (K2: rows are slabs of the packed cache) and gather_hop.cu (K6: rows of
+// the value table, gathered by id): ops/distance.py's dense_point_scores
+// in f32 for UNROLL candidate rows at once.  A group of `group` adjacent
+// lanes reads one candidate's row with N-value loads (16 bytes where the
+// rows are 16-byte aligned, else single values), the query sits in shared
+// memory in f32, and a shuffle tree sums the group's partial sums.  bf16
+// and f16 values are widened to f32 exactly before any arithmetic.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hop_merge.cuh"
+
+namespace pgvt {
+
+enum { L2 = 0, IP = 1, L1 = 2 };  // the wrappers' metric codes
+constexpr int UNROLL = 4;         // candidates a lane group has in flight
+
+// N consecutive row values from p, as f32
+template <typename T, int N>
+struct Load;
+
+template <>
+struct Load<float, 4> {
+  static __device__ __forceinline__ void get(const float* p, float* v) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+};
+
+template <>
+struct Load<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void get(const __nv_bfloat16* p,
+                                             float* v) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of an f32
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <>
+struct Load<__half, 8> {
+  static __device__ __forceinline__ void get(const __half* p, float* v) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const __half* h = reinterpret_cast<const __half*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __half2float(h[i]);
+  }
+};
+
+template <typename T>
+struct Load<T, 1> {
+  static __device__ __forceinline__ void get(const T* p, float* v) {
+    if constexpr (sizeof(T) == 4) {
+      v[0] = __ldg(p);
+    } else if constexpr (std::is_same_v<T, __half>) {
+      v[0] = __half2float(*p);
+    } else {
+      v[0] = __bfloat162float(*p);
+    }
+  }
+};
+
+// The distances of UNROLL rows (row[u], where live[u]) to the query s_q
+// (d values, f32, shared memory): every lane of a group of `group` lanes
+// (gl its lane in the group) adds its share; on return every lane of the
+// group holds the sums, negated for the inner product.  Every lane of the
+// warp calls it with the same trip counts (shuffles).
+template <typename T, int N>
+__device__ __forceinline__ void score_rows(const T* (&row)[UNROLL],
+                                           bool (&live)[UNROLL],
+                                           const float* s_q, int d,
+                                           int group, int gl, int metric,
+                                           float (&acc)[UNROLL]) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) acc[u] = 0.f;
+  for (int e0 = gl * N; e0 < d; e0 += group * N) {
+    float v[UNROLL][N];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (live[u]) {
+        Load<T, N>::get(row[u] + e0, v[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[u][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float q = s_q[e0 + i];
+        if (metric == L2) {
+          const float t = q - v[u][i];
+          acc[u] = fmaf(t, t, acc[u]);
+        } else if (metric == IP) {
+          acc[u] = fmaf(q, v[u][i], acc[u]);
+        } else {
+          acc[u] += fabsf(q - v[u][i]);
+        }
+      }
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    for (int off = group / 2; off > 0; off >>= 1)
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+    if (metric == IP) acc[u] = -acc[u];
+  }
+}
+
+// f(std::integral_constant<int, R>()) with R the tail's lanes a thread at
+// this width
+template <typename F>
+cudaError_t with_lanes(int width, F&& f) {
+  switch (merge_lanes(width)) {
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// lanes per candidate: enough n-element 16-byte loads to cover a row of d,
+// up to a warp; a full warp where rows are not 16-byte aligned
+inline int lane_group(bool vec, int n, int d) {
+  int group = 32;
+  if (vec)
+    while (group > 2 && (group / 2) * n >= d) group /= 2;
+  return group;
+}
+
+}  // namespace pgvt

@@ -45,51 +45,16 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "hop_merge.cuh"
+#include "hop_score.cuh"
 
 namespace {
 
-enum { L2 = 0, IP = 1, L1 = 2 };
-constexpr int UNROLL = 4;  // candidates a lane group has in flight
-
-// N consecutive slab values from p, as f32
-template <typename T, int N>
-struct Load;
-
-template <>
-struct Load<float, 4> {
-  static __device__ __forceinline__ void get(const float* p, float* v) {
-    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void get(const __nv_bfloat16* p,
-                                             float* v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of an f32
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-template <typename T>
-struct Load<T, 1> {
-  static __device__ __forceinline__ void get(const T* p, float* v) {
-    if constexpr (sizeof(T) == 4) {
-      v[0] = __ldg(p);
-    } else {
-      v[0] = __bfloat162float(*p);
-    }
-  }
-};
+using pgvt::IP;
+using pgvt::L1;
+using pgvt::L2;
+using pgvt::lane_group;
+using pgvt::UNROLL;
+using pgvt::with_lanes;
 
 // T: slab type; N: values per load (16 bytes, or 1 where rows are not
 // 16-byte aligned); R: tail lanes per thread
@@ -140,40 +105,12 @@ __global__ void packed_hop_kernel(
       live[u] = c < w && s_pk[ef + (c < w ? c : 0)] >= 0;
       const int s = live[u] ? row_sel[c / m2] : 0;
       slab[u] = nbr_vals + ((size_t)s * m2 + (live[u] ? c % m2 : 0)) * d;
-      acc[u] = 0.f;
     }
-    for (int e0 = gl * N; e0 < d; e0 += group * N) {
-      float v[UNROLL][N];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (live[u]) {
-          Load<T, N>::get(slab[u] + e0, v[u]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < N; ++i) v[u][i] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const float q = s_q[e0 + i];
-          if (metric == L2) {
-            const float t = q - v[u][i];
-            acc[u] = fmaf(t, t, acc[u]);
-          } else if (metric == IP) {
-            acc[u] = fmaf(q, v[u][i], acc[u]);
-          } else {
-            acc[u] += fabsf(q - v[u][i]);
-          }
-        }
-    }
+    pgvt::score_rows<T, N>(slab, live, s_q, d, group, gl, metric, acc);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      for (int off = group / 2; off > 0; off >>= 1)
-        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
       const int c = c0 + u * groups + grp;
-      if (gl == 0 && live[u]) s_d[ef + c] = metric == IP ? -acc[u] : acc[u];
+      if (gl == 0 && live[u]) s_d[ef + c] = acc[u];
     }
   }
   __syncthreads();
@@ -199,20 +136,6 @@ cudaError_t launch(const float* pool_d, const int* pool_p, const int* sel,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, R>()) with R the tail's lanes a thread at
-// this width
-template <typename F>
-cudaError_t with_lanes(int width, F&& f) {
-  switch (pgvt::merge_lanes(width)) {
-    case 2: return f(std::integral_constant<int, 2>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 8: return f(std::integral_constant<int, 8>());
-    case 16: return f(std::integral_constant<int, 16>());
-    case 32: return f(std::integral_constant<int, 32>());
-  }
-  return cudaErrorInvalidValue;
-}
-
 template <typename T, int N>
 cudaError_t launch_lanes(const float* pool_d, const int* pool_p,
                          const int* sel, const int* nbr0, const void* vals,
@@ -224,15 +147,6 @@ cudaError_t launch_lanes(const float* pool_d, const int* pool_p,
         pool_d, pool_p, sel, nbr0, vals, qs, q, ef, e_sel, m2, d, width,
         group, metric, out_d, out_p, st);
   });
-}
-
-// lanes per candidate: enough n-element 16-byte loads to cover a row of d,
-// up to a warp; a full warp where rows are not 16-byte aligned
-inline int lane_group(bool vec, int n, int d) {
-  int group = 32;
-  if (vec)
-    while (group > 2 && (group / 2) * n >= d) group /= 2;
-  return group;
 }
 
 // the value of byte b (0-3) of w as a signed int8

@@ -36,8 +36,12 @@ row-gather hop.  The packed query hop of a dense index is one kernel, K2
 (:func:`..ops.packed_hop.packed_hop`), when the visited set is ``off``
 (K2 takes no table, as the reference's Pallas tail); under ``hash1`` or
 ``hash2`` the hop scores the same slabs in plain torch ops and probes the
-table before scoring.  Every bit distance — hop, wave search and pairwise
-select block — is K5 (:func:`..ops.bit_scan.bit_point_scores`).
+table before scoring.  The row-gather hop of a dense index (every build
+wave's beam) is K6 (:func:`..ops.gather_hop.gather_hop`) under the same
+condition, and SelectNeighbors' keep/prune loop is K3
+(:func:`..ops.select_neighbors.select_neighbors`) everywhere.  Every bit
+distance — hop, wave search and pairwise select block — is K5
+(:func:`..ops.bit_scan.bit_point_scores`).
 
 The mesh build (:func:`wave_search_sharded`, :func:`connect_level_sharded`)
 splits a wave's queries and its select rows and backlink chunks over the
@@ -60,16 +64,12 @@ from ..ops.distance import (dense_point_scores, dot_precision,
 # the int8 slab's scorer sits beside dense_point_scores, which K2's plain
 # version imports; the reference keeps it here (hnsw_kernels.py:202)
 from ..ops.distance import int8_point_scores  # noqa: F401
+from ..ops.gather_hop import dedupe_hop, gather_hop
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
+from ..ops.select_neighbors import select_neighbors
 from ..parallel.mesh import all_gather, shard_rows, to_device
 
-BIG = 3.0e38
-
-#: Knuth's multiplicative hash and its inverse mod 2^32: a bijection on
-#: ids, so equal keys ⇔ equal ids, and the permuted order is unbiased
-_PERM = 2654435761
-_PERM_INV = 244002641
 _MASK32 = 0xFFFFFFFF
 
 
@@ -299,7 +299,7 @@ def visited_probe(table: torch.Tensor, elems: torch.Tensor,
 
 def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
               expand: int = 1, packed=None, metric: Optional[Metric] = None,
-              visited=None, disc=None, vmode: str = "off"):
+              visited=None, disc=None, vmode: str = "off", rows=None):
     """One expansion hop: pop the ``expand`` nearest unexpanded candidates
     per query, gather their neighbors, score the unvisited ones and merge
     them into the pool.  Returns (pool_d, pool_i, pool_x, visited, done).
@@ -322,7 +322,13 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     run in K2, which takes no visited set and no discarded pool (as the
     reference's Pallas tail); otherwise the slabs are scored in torch ops
     after the duplicate, pool and visited checks (the reference's packed
-    path outside its Pallas tail, hnsw_kernels.py:464-516)."""
+    path outside its Pallas tail, hnsw_kernels.py:464-516).
+
+    ``rows`` — the (N, D) value table of a dense index, whose rows the
+    ``metric`` scores: with the visited set ``off`` and no discarded pool
+    the dedupe, the pool mask, the row scores and the merge run in K6
+    (:func:`..ops.gather_hop.gather_hop`); otherwise, and for bit and
+    sparse values, in torch ops through ``score``."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -355,17 +361,17 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
                                    vmode)
     # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
+    if rows is not None and vmode == "off" and disc is None:
+        # the dedupe, pool mask, row scores and merge in one kernel (K6)
+        pool_packed = pool_i * 2 + pool_x.to(torch.int32)
+        d, pp = gather_hop(pool_d.contiguous(), pool_packed.contiguous(),
+                           sel_flat.contiguous(), nb.contiguous(), rows,
+                           qs.contiguous(), ef, metric)
+        return d, pp >> 1, (pp & 1) == 1, visited, done
     nbrs = torch.where(sel_flat[:, None] >= 0, nb, -1).reshape(nq, -1)
     if sel_elem.shape[1] > 1:
-        # dedupe within the hop (two expanded nodes sharing a neighbor):
-        # sort by the Knuth permutation of the id and mask adjacent equals
-        inval = _MASK32  # no id < 2^30 maps here
-        key = torch.where(nbrs >= 0, (nbrs.long() * _PERM) & _MASK32, inval)
-        key, _ = torch.sort(key, dim=1)
-        dup = torch.zeros_like(key, dtype=torch.bool)
-        dup[:, 1:] = (key[:, 1:] == key[:, :-1]) & (key[:, 1:] != inval)
-        ids = ((key * _PERM_INV) & _MASK32).to(torch.int32)
-        nbrs = torch.where(dup | (key == inval), -1, ids)
+        # dedupe within the hop (two expanded nodes sharing a neighbor)
+        nbrs = dedupe_hop(nbrs)
     # pool-membership check keeps the ef pool duplicate-free (also when a
     # visited-table insert failed)
     in_pool = torch.any(nbrs[:, :, None] == pool_i[:, None, :], dim=2)
@@ -464,12 +470,13 @@ def _pool_seed(init_d, init_i, visited, ef: int, vmode: str = "off"):
 
 def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
                  max_steps: int, expand: int = 1, packed=None, metric=None,
-                 visited=None, disc=None, vmode: str = "off"):
+                 visited=None, disc=None, vmode: str = "off", rows=None):
     """Algorithm 2 (HnswSearchLayer, hnswutils.c:822-985), batched.
     Returns (pool_d, pool_i, steps); with ``disc`` (a (disc_d, disc_i)
     pair), (pool_d, pool_i, visited, disc, steps, scanned), ``scanned``
     each query's scored candidates.  One host read per hop decides whether
-    every query is done."""
+    every query is done.  ``packed`` and ``rows`` select the hop's kernel
+    (:func:`_hop_body`)."""
     pool_d, pool_i, pool_x, visited = _pool_seed(init_d, init_i, visited,
                                                  ef, vmode)
     scanned = (torch.zeros(pool_d.shape[0], dtype=torch.int32,
@@ -478,7 +485,7 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
     while steps < max_steps:
         out = _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef,
                         expand, packed=packed, metric=metric, visited=visited,
-                        disc=disc, vmode=vmode)
+                        disc=disc, vmode=vmode, rows=rows)
         if disc is None:
             pool_d, pool_i, pool_x, visited, done = out
         else:
@@ -522,54 +529,6 @@ def greedy_descent(score, neighbors_of_level, qs, start, start_d, level: int,
 # ---------------------------------------------------------------------------
 # SelectNeighbors heuristic (Algorithm 4 — hnswutils.c:1062-1163)
 # ---------------------------------------------------------------------------
-
-
-def select_neighbors(base_d, pair_d, valid, lm: int, forced=None):
-    """Algorithm 4 over a batch of (T, C) candidate pools: returns ((T, lm)
-    selected candidate positions, -1 padded; (T, lm) kept flags) —
-    heuristic-kept first, then the closest pruned ones as backfill
-    (keepPrunedConnections, hnswutils.c:1133-1156).
-
-    ``forced`` marks candidates whose kept status is sticky (the
-    reference's cached ``closer`` flags, hnswutils.c:1094-1131): they skip
-    the pair check but still compete for the lm slots in distance order.
-
-    Candidates are visited closest first.  The pool is permuted into that
-    order once, so step t reads column t of every tensor."""
-    t_rows, c = base_d.shape
-    big_d = torch.where(valid, base_d, torch.inf)
-    if forced is None:
-        forced = torch.zeros_like(valid)
-    forced = forced & valid & torch.isfinite(big_d)
-    sd, order = torch.sort(big_d, dim=1, stable=True)
-    sf = torch.gather(forced, 1, order)
-    fin = torch.isfinite(sd)
-    # pp[b, a, t] = pair_d[b, order[a], order[t]]
-    pp = torch.gather(pair_d, 1, order[:, :, None].expand(t_rows, c, c))
-    pp = torch.gather(pp, 2, order[:, None, :].expand(t_rows, c, c))
-    min_pair = torch.full_like(sd, torch.inf)
-    kept_s = torch.zeros_like(sf)
-    count = torch.zeros(t_rows, dtype=torch.int32, device=sd.device)
-    for t in range(c):
-        ok = (sf[:, t] | (sd[:, t] < min_pair[:, t])) & fin[:, t] & (count < lm)
-        kept_s[:, t] = ok
-        torch.minimum(min_pair, torch.where(ok[:, None], pp[:, :, t],
-                                            torch.inf), out=min_pair)
-        count += ok
-    kept = torch.zeros_like(kept_s).scatter_(1, order, kept_s)
-    rank = torch.where(kept, big_d,
-                       torch.where(torch.isfinite(big_d), big_d + BIG,
-                                   torch.inf))
-    rank_s, pos = torch.sort(rank, dim=1, stable=True)
-    rank_s, pos = rank_s[:, :lm], pos[:, :lm]
-    pos = torch.where(torch.isinf(rank_s), -1, pos)
-    kept_sel = torch.gather(kept, 1, _long(pos)) & (pos >= 0)
-    if pos.shape[1] < lm:  # fewer candidates than slots
-        fill = lm - pos.shape[1]
-        pos = torch.cat([pos, pos.new_full((t_rows, fill), -1)], dim=1)
-        kept_sel = torch.cat(
-            [kept_sel, kept_sel.new_zeros((t_rows, fill))], dim=1)
-    return pos, kept_sel
 
 
 #: rows of one batched product of the pairwise block.  Every call but the
@@ -1000,11 +959,13 @@ def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
     """Algorithm 1's search for a wave of elements.  Returns stacked
     per-level pools (l_unroll+1, Q, ef); ``self_ids`` excludes each
     query's own element from them (vacuum's repair).  Each level's beam
-    starts a fresh visited table under ``hash1`` / ``hash2``.  Every
+    starts a fresh visited table under ``hash1`` / ``hash2``; with the
+    visited set ``off`` a dense index's beam hops run in K6.  Every
     query's pools depend on that query alone, so a split of the wave
     gives the same pools (:func:`wave_search_sharded`)."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
+    rows = values if kind == "dense" else None
 
     def greedy_fn(lc, qs_, cur, cur_d):
         return greedy_descent(score, nbrs, qs_, cur, cur_d, lc, max_steps=512)
@@ -1014,8 +975,8 @@ def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
                    if vmode != "off" else None)
         pd, pi, _ = search_layer(
             score, lambda e: nbrs(e, lc), qs_, pool_d, pool_i, ef=ef,
-            max_steps=4 * ef + 64, expand=expand, visited=visited,
-            vmode=vmode)
+            max_steps=4 * ef + 64, expand=expand, metric=metric,
+            visited=visited, vmode=vmode, rows=rows)
         return pd, pi
 
     return _wave_level_loop(score, qs, lv, entry, entry_level, ef, l_unroll,
@@ -1108,7 +1069,8 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     2's loop bound).
     Returns (stored distances, row ids, layer-0 hops).  Only a dense index
     has packed values (the reference packs dense rows only,
-    hnsw.py:1203)."""
+    hnsw.py:1203); without them a dense index's layer-0 hops under the
+    visited set ``off`` run in K6."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
     nq = _nq(qs)
@@ -1129,7 +1091,8 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     pool_d, pool_i, steps = search_layer(
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
         ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
-        packed=packed, metric=metric, visited=visited, vmode=vmode)
+        packed=packed, metric=metric, visited=visited, vmode=vmode,
+        rows=values if kind == "dense" else None)
     if rerank:
         pool_d = score(qs, pool_i)  # exact f32 distances for the final pool
         pool_d, order = torch.sort(pool_d, dim=1, stable=True)

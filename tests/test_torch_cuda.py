@@ -8,7 +8,12 @@ generator on the table's device; K1 at 4,096 dims (the densified sparse
 scans); K4 (bit_topk) and K5 (bit_point_scores) equal to their plain
 versions, and the bit and sparse indexes on CUDA against the CPU; K2's
 int8 slab equal to its plain version (L1 within ``int8_l1_bound``), and
-the grouped exact engine on the card against the tiled scan; the
+the grouped exact engine on the card against the tiled scan; K3
+(select_neighbors) equal to its plain version bit for bit, from C = 1 to
+1,100 (both the shared-memory and the device-memory route), and K6
+(gather_hop) against its plain version for every metric and value type,
+with a build that runs every select through K3 and every hop through
+K6; the
 planner's calibrated pick against the timed paths; the mesh paths on four
 shards of one card (the sharded exact search through K1 against
 FlatIndex, the mesh build bit for bit, the fan-out against the 1-D
@@ -48,8 +53,13 @@ from pgvector_tpu_torch.ops.hop_tail import (  # noqa: E402
     MAX_WIDTH, hop_tail, hop_tail_plain)
 from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
     int8_l1_bound, packed_hop, packed_hop_plain)
+from pgvector_tpu_torch.ops.gather_hop import (  # noqa: E402
+    gather_hop, gather_hop_plain)
+from pgvector_tpu_torch.ops.select_neighbors import (  # noqa: E402
+    select_neighbors, select_neighbors_plain, staged)
 from torch_parity import (  # noqa: E402
-    assert_same_pool, assert_same_topk, int8_hop_case, packed_hop_case)
+    assert_same_pool, assert_same_topk, gather_hop_case, int8_hop_case,
+    packed_hop_case, select_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -248,6 +258,134 @@ def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
             _assert_int8_hop(a, d1, p1, d0, p0)
         else:
             assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+
+
+@pytest.mark.parametrize("t,c,lm", [(300, 1, 8), (300, 5, 8), (300, 8, 8),
+                                    (1024, 80, 32), (4096, 64, 32),
+                                    (300, 33, 16), (200, 110, 32),
+                                    (200, 111, 32), (300, 400, 200),
+                                    (64, 1100, 32)])
+@pytest.mark.parametrize("forced", [False, True])
+def test_select_neighbors_kernel_equals_plain(dev, t, c, lm, forced):
+    """K3 against its plain version bit for bit on seeded pools with
+    ties, invalid, +inf and forced candidates: C below, at and far above
+    lm, up to 110 through shared memory and beyond it (C = 111, 400 and
+    1,100) from device memory."""
+    args = [None if a is None else torch.from_numpy(a).to(dev)
+            for a in select_case(c + lm + forced, t, c, forced)]
+    launches = select_neighbors.launches
+    p1, k1 = select_neighbors(*args[:3], lm, args[3])
+    torch.cuda.synchronize()
+    assert select_neighbors.launches == launches + 1
+    p0, k0 = select_neighbors_plain(*args[:3], lm, args[3])
+    assert p1.dtype == p0.dtype == torch.int32
+    assert torch.equal(p1, p0) and torch.equal(k1, k0)
+    assert staged(c) == (c <= 110)
+
+
+def test_select_neighbors_kernel_rejects(dev):
+    base, pair, valid, fc = (torch.from_numpy(a).to(dev)
+                             for a in select_case(1, 8, 16))
+    with pytest.raises(ValueError):
+        select_neighbors(base.double(), pair, valid, 8, fc)
+    with pytest.raises(ValueError):
+        select_neighbors(base, pair[:, :8], valid, 8, fc)
+    with pytest.raises(ValueError):
+        select_neighbors(base, pair, valid, 8, fc[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        select_neighbors(base, pair, valid.int(), 8, fc)
+    with pytest.raises(ValueError):
+        select_neighbors(base, pair, valid, 0, fc)
+
+
+@pytest.mark.parametrize("d", [7, 33, 128, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("metric", ["L2", "IP", "L1"])
+@pytest.mark.parametrize("ef,e_sel", [(24, 4), (64, 4), (100, 1), (40, 8)])
+def test_gather_hop_kernel_matches_plain(dev, d, dtype, metric, ef, e_sel):
+    """K6 against its plain version on seeded hops: row-aligned and
+    unaligned rows (16-byte loads or single values), every metric code and
+    value type, queries in the table's type and in f32, one to eight
+    lists a row (with E > 1 in Knuth-key order, repeats across lists)."""
+    case = gather_hop_case(d + ef + e_sel, 37, ef, e_sel, d=d, cap=1200)
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    args[4] = args[4].to(dtype)
+    if d != 33:
+        args[5] = args[5].to(dtype)
+    launches = gather_hop.launches
+    d1, p1 = gather_hop(*args, ef, Metric[metric])
+    torch.cuda.synchronize()
+    assert gather_hop.launches == launches + 1
+    d0, p0 = gather_hop_plain(*args, ef, Metric[metric])
+    assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+
+
+def test_gather_hop_kernel_rejects(dev):
+    args = [torch.from_numpy(a).to(dev) for a in gather_hop_case(2, 8, 24, 4)]
+    with pytest.raises(ValueError):  # f64 rows
+        gather_hop(*args[:4], args[4].double(), args[5], 24, Metric.L2)
+    with pytest.raises(ValueError):  # the queries' width
+        gather_hop(*args[:5], args[5][:, :8].contiguous(), 24, Metric.L2)
+    with pytest.raises(ValueError):  # lists for another number of rows
+        gather_hop(*args[:3], args[3][:8], *args[4:], 24, Metric.L2)
+    with pytest.raises(ValueError):  # ef + W over the tail's 4,096 lanes
+        wide = args[3].repeat(1, 80)
+        gather_hop(*args[:3], wide, *args[4:], 24, Metric.L2)
+
+
+def test_build_runs_select_and_hops_on_kernels(dev, monkeypatch):
+    """A dense build, VACUUM and INSERT on the card: every select runs K3
+    and every beam hop K6 (launches equal calls), and the graph matches
+    the one built with the plain versions in recall."""
+    from pgvector_tpu_torch.index import hnsw_kernels
+
+    rng = np.random.default_rng(31)
+    db = rng.normal(size=(4000, 32)).astype(np.float32)
+    q = db[:200] + rng.normal(size=(200, 32)).astype(np.float32) * 0.05
+    calls = {"select": 0, "hop": 0}
+    orig_sel, orig_hop = hnsw_kernels.select_neighbors, \
+        hnsw_kernels.gather_hop
+
+    def count(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(hnsw_kernels, "select_neighbors",
+                        count("select", orig_sel))
+    monkeypatch.setattr(hnsw_kernels, "gather_hop", count("hop", orig_hop))
+    recall = {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(hnsw_kernels, "select_neighbors",
+                                select_neighbors_plain)
+            monkeypatch.setattr(hnsw_kernels, "gather_hop", gather_hop_plain)
+        table = DenseTable(32, device=dev)
+        table.insert(db)
+        s0, h0 = select_neighbors.launches, gather_hop.launches
+        idx = HNSWIndex(table, Metric.L2, m=8, ef_construction=32,
+                        wave_size=512, beam_expand=4, dedup=False)
+        table.delete(np.arange(100, 400))
+        idx.vacuum()
+        idx.insert(table.insert(db[100:400] + 0.01))
+        if route == "kernels":
+            assert calls["select"] > 0 and calls["hop"] > 0
+            assert select_neighbors.launches - s0 == calls["select"]
+            assert gather_hop.launches - h0 == calls["hop"]
+        else:
+            assert select_neighbors.launches == s0
+            assert gather_hop.launches == h0
+        live = table.data[: table.count].cpu().numpy()
+        exact = ((q[:, None, :] - live[None, :, :]) ** 2).sum(-1)
+        exact[:, ~table.valid[: table.count].cpu().numpy()] = np.inf
+        gt = np.argsort(exact, axis=1, kind="stable")[:, :10]
+        _, r = idx.search(q, 10, ef_search=64)
+        recall[route] = np.mean([len(set(a) & set(b)) / 10
+                                 for a, b in zip(r, gt)])
+    assert recall["kernels"] >= 0.9
+    assert abs(recall["kernels"] - recall["plain"]) <= 0.02, recall
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -116,3 +116,58 @@ def assert_same_pool(d_ref, p_ref, d_got, p_got, atol=ATOL, rtol=RTOL):
     same = (p_ref >> 1) == (p_got >> 1)
     if not ((p_ref & 1) == (p_got & 1))[same].all():
         raise AssertionError("expanded flags differ where the ids agree")
+
+
+def select_case(seed, t, c, forced=True):
+    """Seeded numpy inputs of one SelectNeighbors batch: (base_d, pair_d,
+    valid, forced).  Candidates sit on a small integer grid around their
+    base, so base and pair distances tie often; about 10 % are invalid, a
+    few valid ones lie at +inf, row 0 is all invalid and, with ``forced``,
+    about 20 % are forced (invalid and +inf ones too) and row 1 all."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 4, size=(t, c + 1, 3)).astype(np.float32)
+    base = ((pts[:, 1:] - pts[:, :1]) ** 2).sum(-1).astype(np.float32)
+    pair = ((pts[:, 1:, None] - pts[:, None, 1:]) ** 2).sum(-1)
+    valid = rng.random((t, c)) > 0.1
+    valid[0] = False
+    base[rng.random((t, c)) < 0.05] = np.inf
+    pair = np.where(valid[:, :, None] & valid[:, None, :], pair,
+                    np.inf).astype(np.float32)
+    fc = None
+    if forced:
+        fc = rng.random((t, c)) < 0.2
+        fc[min(1, t - 1)] = True
+    return base, pair, valid, fc
+
+
+def gather_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
+    """Seeded numpy inputs of one row-gather hop: (pool_d, pool_p,
+    sel_flat, nb, rows, qs).  Pools are sorted, duplicate-free and partly
+    expanded; row 1's pool is half empty; list slots and selections are
+    partly -1; row 3 selects nothing; row 0 meets a pool entry among its
+    candidates and, with e_sel > 1, two of row 2's lists share ids."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(cap, d)).astype(np.float32)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    pool_i = np.stack([rng.choice(cap, ef, replace=False)
+                       for _ in range(q)]).astype(np.int32)
+    pool_d = np.sort(rng.random((q, ef)).astype(np.float32) * 2 * d, axis=1)
+    pool_x = rng.random((q, ef)) > 0.5
+    pool_i[1, ef // 2:] = -1
+    pool_d[1, ef // 2:] = np.inf
+    pool_x[1, ef // 2:] = False
+    sel = rng.integers(0, cap, size=(q, e_sel)).astype(np.int32)
+    sel[rng.random((q, e_sel)) < 0.2] = -1
+    nb = np.stack([rng.choice(cap, m2, replace=False)
+                   for _ in range(q * e_sel)]).astype(np.int32)
+    nb = nb.reshape(q, e_sel, m2)
+    nb[rng.random(nb.shape) < 0.1] = -1
+    sel[0, 0] = 7
+    nb[0, 0, 0] = pool_i[0, 0]
+    if e_sel > 1:
+        sel[2, :2] = (11, 12)
+        nb[2, 1, : m2 // 2] = nb[2, 0, : m2 // 2]
+    sel[3] = -1
+    pool_p = pool_i * 2 + pool_x.astype(np.int32)
+    return (pool_d, pool_p, sel.reshape(-1), nb.reshape(q * e_sel, m2),
+            rows, qs)
