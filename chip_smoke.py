@@ -17,9 +17,11 @@ pgvector_tpu_torch/csrc and holds K1 and K2's tail (hop_tail) against
 their plain PyTorch versions on the card; after it, K2 itself on hop
 states captured from the 1M graph, K3 bit for bit on the selects of a
 build wave and on pools of ef_construction 1,000 (C = 1,016, past the
-shared-memory route), and K6 on a build wave's beam hops.  Every later
-phase counts K3 and K6 against the selects and dense row-gather hops it
-ran.  Last, the IVFFlat lane of bench.py
+register sort), on the Gram form the build hands it and on the block
+that form makes, and K6 (one launch a hop: the E-selection, the list
+reads and the merge) on a build wave's beam hops, done flags included.
+Every later phase counts K3 and K6 against the selects and dense
+row-gather hops it ran.  Last, the IVFFlat lane of bench.py
 on the same table (lists = n / 1000, seed 1): the build split into its
 phases, recall@10 and QPS at probes 1, 10 and 32, exhaustive probing
 against K1's ground truth, the two probe routes against each other,
@@ -1792,11 +1794,12 @@ class BuildKernels:
     """The build's two loops and their kernels, counted for the whole run:
     every SelectNeighbors call (``hnsw_kernels.select_neighbors``, the
     name every select calls) beside K3's launches, and every row-gather
-    hop (a ``_hop_body`` call without the packed cache, the visited set
-    ``off`` and no discarded pool; ``dense`` those of a dense index) beside
-    K6's.  ``capture(kind, args)``, where set, sees each select's inputs
-    ("select"), each beam's start ("beam") and each K6 call's inputs
-    ("hop")."""
+    hop with the visited set ``off`` and no discarded pool beside K6's:
+    a dense index's hops are the calls of ``hnsw_kernels.gather_hop``
+    (one a hop, from ``search_layer``), the others ``_hop_body`` calls
+    without the packed cache.  ``capture(kind, args)``, where set, sees
+    each select's inputs ("select"), each beam's start ("beam") and each
+    K6 call's inputs ("hop")."""
 
     def __init__(self):
         from pgvector_tpu_torch.index import hnsw_kernels as K
@@ -1819,7 +1822,6 @@ class BuildKernels:
             if (kw.get("packed") is None and kw.get("disc") is None
                     and kw.get("vmode", "off") == "off"):
                 self.calls["row_gather_hops"] += 1
-                self.calls["dense_hops"] += kw.get("rows") is not None
             return hop(*a, **kw)
 
         def counted_beam(*a, **kw):
@@ -1827,13 +1829,15 @@ class BuildKernels:
                 self.capture("beam", a)
             return beam(*a, **kw)
 
-        def captured_k6(*a):
+        def counted_k6(*a, **kw):
+            self.calls["row_gather_hops"] += 1
+            self.calls["dense_hops"] += 1
             if self.capture:
                 self.capture("hop", a)
-            return k6(*a)
+            return k6(*a, **kw)
 
         K.select_neighbors, K._hop_body = counted_sel, counted_hop
-        K.search_layer, K.gather_hop = counted_beam, captured_k6
+        K.search_layer, K.gather_hop = counted_beam, counted_k6
 
     def reset(self):
         """Every count to 0."""
@@ -1842,36 +1846,61 @@ class BuildKernels:
 
     def read(self, phase, all_dense=False):
         """The counts since the last reset; fails unless every select
-        launched K3 and every dense row-gather hop K6 (with ``all_dense``
-        every row-gather hop was a dense one)."""
+        launched K3 and every dense row-gather hop K6 once (with
+        ``all_dense`` every row-gather hop was a dense one)."""
         c = dict(self.calls, select_neighbors=self.k3.launches,
                  gather_hop=self.k6.launches)
         check(c["select_neighbors"] == c["select"],
               f"phase {phase}: every select through K3 "
               f"({c['select_neighbors']} launches for {c['select']} calls)")
         check(c["gather_hop"] == c["dense_hops"],
-              f"phase {phase}: every dense row-gather hop through K6 "
+              f"phase {phase}: every dense row-gather hop one K6 launch "
               f"({c['gather_hop']} launches for {c['dense_hops']} hops)")
         check(not all_dense or c["dense_hops"] == c["row_gather_hops"],
               f"phase {phase}: every row-gather hop is a dense one")
         return c
 
 
+def loop_rows(base_d, valid, pos, kept, lm):
+    """(T,) the rows of the pairwise block each pool's keep loop reaches,
+    from a select's result: up to the lm-th kept candidate in the stable
+    order of the base distances where lm were kept, else every finite
+    one."""
+    import torch
+
+    big_d = torch.where(valid, base_d, torch.inf)
+    fin = torch.isfinite(big_d)
+    big_d = torch.where(fin, big_d, torch.inf)
+    order = torch.sort(big_d, dim=1, stable=True)[1]
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=order.device)
+        .expand_as(order).contiguous())
+    at = torch.where(kept & (pos >= 0),
+                     torch.gather(rank, 1, torch.clamp(pos, min=0).long()),
+                     -1)
+    n_kept = torch.sum(kept & (pos >= 0), dim=1)
+    return torch.where(n_kept >= lm, at.max(dim=1).values + 1,
+                       torch.sum(fin, dim=1))
+
+
 def select_vs_plain(idx, captured, dev, efc=1000, rows=256):
     """K3 against its plain version, bit for bit, on the selects captured
-    from a build wave (``captured``: inputs by shape) and on pools of
-    ``efc`` searched on the built graph for ``rows`` of its elements (the
-    connect's C = efc + m, past the shared-memory route).  Each case timed
-    (CUDA events, and the kernel alone by torch.profiler) beside its plain
-    version and its bound: the pair block and the flags read once, the
-    outputs written once."""
+    from a build wave (``captured``: inputs by shape; dense L2 pools come
+    in the Gram form, the products and the norms) and on pools of ``efc``
+    searched on the built graph for ``rows`` of its elements (the
+    connect's C = efc + m); on the Gram form and on the block it forms.
+    Each case timed (CUDA events, and the kernel alone by torch.profiler)
+    beside its plain version, the formed block's kernel and two bounds:
+    the bytes of the rows the keep loop reaches with the flags, norms and
+    outputs (``bound_ms``), and the whole block read once
+    (``bound_block_ms``)."""
     import numpy as np
     import torch
 
     from pgvector_tpu_torch import Metric
     from pgvector_tpu_torch.index import hnsw_kernels as K
     from pgvector_tpu_torch.ops.select_neighbors import (
-        select_neighbors, select_neighbors_plain, staged)
+        Gram, form_pairs, select_neighbors, select_neighbors_plain)
 
     check(captured, "captured the build's selects")
     cases = [("build", a) for a in captured.values()]
@@ -1886,84 +1915,121 @@ def select_vs_plain(idx, captured, dev, efc=1000, rows=256):
     pd, pi = K._connect_pools("dense", Metric.L2, idx.values, elems,
                               torch.ones_like(elems, dtype=torch.bool),
                               pd[0], pi[0], idx.m, 0)
-    pair = K._pairwise_dists("dense", Metric.L2, idx.values, pi)
+    pair = K._pair_block("dense", Metric.L2, idx.values, pi)
     cases.append((f"ef_construction {efc}",
                   [pd.contiguous(), pair, pi >= 0, 2 * idx.m, None]))
     out = []
     for source, (base, pair_d, valid, lm, forced) in cases:
+        gram = isinstance(pair_d, Gram)
+        check(gram, f"the {source} select took the Gram form")
+        block = form_pairs(pair_d, valid)
         p1, k1 = select_neighbors(base, pair_d, valid, lm, forced)
         p0, k0 = select_neighbors_plain(base, pair_d, valid, lm, forced)
+        p2, k2 = select_neighbors(base, block, valid, lm, forced)
         torch.cuda.synchronize()
         check(torch.equal(p1, p0) and torch.equal(k1, k0),
-              f"K3 equals its plain version bit for bit at "
-              f"{tuple(pair_d.shape)}, lm {lm}")
+              f"K3 on the Gram form equals its plain version bit for bit "
+              f"at {tuple(block.shape)}, lm {lm}")
+        check(torch.equal(p2, p0) and torch.equal(k2, k0),
+              f"K3 on the formed block equals its plain version bit for "
+              f"bit at {tuple(block.shape)}, lm {lm}")
         t, c = base.shape
-        b, by = bound_ms(4 * t * c * c + 6 * t * c + 5 * t * lm)
+        reached = int(loop_rows(base, valid, p0, k0, lm).sum())
+        flags = 4 * t * c * (2 if pair_d.l2 else 1) + t * c * (
+            1 if forced is None else 2) + 5 * t * lm
+        b, by = bound_ms(4 * c * reached + flags)
+        b_all, _ = bound_ms(4 * t * c * c + flags)
         out.append({
             "source": source, "rows": t, "c": c, "lm": lm,
-            "forced": forced is not None, "staged": staged(c),
+            "forced": forced is not None, "form": "gram l2",
             "equal": True, "kept": int(k1.sum()),
+            "block_rows_reached": reached,
             "ms": cuda_ms(lambda: select_neighbors(base, pair_d, valid, lm,
                                                    forced)),
             "kernel_only_ms": kernel_only_ms(lambda: select_neighbors(
                 base, pair_d, valid, lm, forced))[0],
+            "block_kernel_only_ms": kernel_only_ms(lambda: select_neighbors(
+                base, block, valid, lm, forced))[0],
             "plain_ms": cuda_ms(lambda: select_neighbors_plain(
                 base, pair_d, valid, lm, forced)),
-            "bound_ms": b, "bound_by": by})
-    check(any(not r["staged"] for r in out), "a case past shared memory")
+            "bound_ms": b, "bound_by": by, "bound_block_ms": b_all})
+        del block
+    check(any(r["c"] > 512 for r in out), "a case past the register sort")
     return out
 
 
 def gather_hop_vs_plain(captured):
     """K6 against its plain version on the beam hops captured from a build
-    wave (``captured``: (beam, hop) -> inputs; the last beam is level 0):
-    ids apart from ties, distances within torch_parity's ATOL / RTOL (K2's
-    f32 card test).  Level 0's hop 4 timed (CUDA events, and the kernel
-    alone by torch.profiler) beside its plain version and its bound: the pool read and written, the lists, the
-    queries and each row the hop must score (distinct, not in the pool)
-    read once."""
+    wave (``captured``: (beam, hop) -> inputs; the last beam is level 0),
+    each the whole hop: ids apart from ties, distances within
+    torch_parity's ATOL / RTOL (K2's f32 card test), the done flags and
+    the count of queries not done equal.  Level 0's hop 4 timed (CUDA
+    events, and the kernel alone by torch.profiler) beside its plain
+    version and its bound: the pool read and written, the expanded
+    elements' lists (and slots above level 0), the queries, each row the
+    hop must score (distinct, not in the pool) read once, the done flags
+    written; beside it torch.index_select of those rows alone (the
+    library's rate for the same random rows, read and written)."""
     import numpy as np
     import torch
 
     from torch_parity import assert_same_pool
     from pgvector_tpu_torch.ops.gather_hop import (
-        dedupe_hop, gather_hop, gather_hop_plain)
+        dedupe_hop, gather_hop, gather_hop_plain, hop_buffers, hop_lists,
+        select_expand)
 
     check(captured, "captured the build's hops")
     level0 = max(b for b, _ in captured)
     out = []
     for (beam, hop), st in sorted(captured.items()):
-        d1, p1 = gather_hop(*st)
-        d0, p0 = gather_hop_plain(*st)
+        d1, p1, done1, left1 = gather_hop(*st)
+        d0, p0, done0, left0 = gather_hop_plain(*st)
         torch.cuda.synchronize()
+        check(torch.equal(done1, done0) and torch.equal(left1, left0),
+              f"K6's done flags at beam {beam}, hop {hop}")
         d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
         assert_same_pool(d0, p0, d1, p1)
         fin = np.isfinite(d0)
         row = {"beam": beam, "level0": beam == level0, "hop": hop,
+               "not_done": int(left1),
                "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max())
                if fin.any() else 0.0,
                "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())}
         if beam == level0 and hop == 4:
-            pool_d, pool_p, sel, nb, rows, qs, ef = st[:7]
+            pool_d, pool_p, nbr0, nbr_up, up_slot, level, rows, qs, ef, \
+                expand = st[:10]
             q = pool_d.shape[0]
-            nbrs = torch.where(sel[:, None] >= 0, nb, -1).reshape(q, -1)
-            if sel.numel() > q:
+            pp, sel, _ = select_expand(pool_d, pool_p, ef, expand)
+            nbrs = hop_lists(sel, nbr0, nbr_up, up_slot, level, rows.shape[0])
+            if expand > 1:
                 nbrs = dedupe_hop(nbrs)
             in_pool = torch.any(
-                nbrs[:, :, None] == (pool_p >> 1)[:, None, :], dim=2)
-            scored = int(((nbrs >= 0) & ~in_pool).sum())
+                nbrs[:, :, None] == (pp >> 1)[:, None, :], dim=2)
+            live = (nbrs >= 0) & ~in_pool
+            scored = int(live.sum())
+            ids = nbrs[live].long()
+            gathered = torch.empty((scored, rows.shape[1]),
+                                   dtype=rows.dtype, device=rows.device)
+            lists = int((sel >= 0).sum()) * (
+                nbr0.shape[1] if level == 0 else nbr_up.shape[2] + 1)
             dim = rows.shape[1]
-            b, by = bound_ms(16 * q * ef + 4 * sel.numel() + 4 * nb.numel()
+            b, by = bound_ms(16 * q * ef + 4 * lists + q
                              + qs.element_size() * qs.numel()
                              + rows.element_size() * dim * scored,
                              2.0 * dim * scored)
-            row.update(timed=True, queries=q, expand=sel.numel() // q,
-                       width=nb.shape[1], scored=scored,
-                       ms=cuda_ms(lambda: gather_hop(*st)),
+            # output buffers made once, as a beam makes them: each timed
+            # call launches K6 alone
+            bufs = hop_buffers(q, ef, pool_d.device)
+            row.update(timed=True, queries=q, expand=expand,
+                       width=nbr0.shape[1], scored=scored,
+                       ms=cuda_ms(lambda: gather_hop(*st, out=bufs)),
                        kernel_only_ms=kernel_only_ms(
-                           lambda: gather_hop(*st))[0],
+                           lambda: gather_hop(*st, out=bufs))[0],
                        plain_ms=cuda_ms(lambda: gather_hop_plain(*st)),
-                       bound_ms=b, bound_by=by)
+                       bound_ms=b, bound_by=by,
+                       index_select_ms=kernel_only_ms(
+                           lambda: torch.index_select(rows, 0, ids,
+                                                      out=gathered))[0])
         out.append(row)
     check(any(r.get("timed") for r in out), "timed level 0's hop 4")
     return out
@@ -2469,6 +2535,7 @@ def main():
     from pgvector_tpu_torch.index import hnsw_kernels
     from pgvector_tpu_torch.ops.hop_tail import hop_tail, hop_tail_plain
     from pgvector_tpu_torch.ops.packed_hop import packed_hop, packed_hop_plain
+    from pgvector_tpu_torch.ops.select_neighbors import Gram
     from pgvector_tpu_torch.utils.telemetry import timers
 
     dev = torch.device("cuda", 0)
@@ -2646,9 +2713,11 @@ def main():
         if wave4["calls"] != wave4["middle"] + 1:
             return
         if kind == "select":  # the first select of each shape
-            key = (tuple(a[1].shape), a[3], a[4] is not None)
+            key = (tuple(a[1].ip.shape), a[3], a[4] is not None)
             cap4["select"].setdefault(key, [
-                t.clone() if torch.is_tensor(t) else t for t in a])
+                t.clone() if torch.is_tensor(t) else
+                Gram(t.ip.clone(), t.sq.clone(), t.l2)
+                if isinstance(t, Gram) else t for t in a])
         elif kind == "beam":
             cap4["beam"] += 1
             cap4["hop"] = 0
@@ -2889,7 +2958,8 @@ def main():
          "source": "pgvector_tpu_torch/csrc/select_neighbors.cu",
          "replaces": "pgvector_tpu/index/hnsw_kernels.py:804 "
                      "(select_neighbors under select_neighbors_batch :855, "
-                     "its fori_loop :844; an XLA program, no Pallas "
+                     "its fori_loop :844, and the dense block of "
+                     "_pairwise_dists :897; an XLA program, no Pallas "
                      "kernel)",
          "launches": sum(by_phase("select_neighbors").values()),
          "launches_by_phase": by_phase("select_neighbors"),
@@ -2898,14 +2968,17 @@ def main():
          "ms": k3_main["ms"], "kernel_only_ms": k3_main["kernel_only_ms"],
          "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "bound_counts": "the block rows the keep loops reach",
+         "bound_block_ms": k3_main["bound_block_ms"],
+         "block_kernel_only_ms": k3_main["block_kernel_only_ms"],
          "library_ms": None,
          "timed_shape": [k3_main["rows"], k3_main["c"], k3_main["lm"]]},
         {"name": "gather_hop", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/gather_hop.cu",
-         "replaces": "pgvector_tpu/index/hnsw_kernels.py:401 (the "
-                     "row-gather branch of _hop_body, _hop_merge :554, "
-                     "under _hop_step :588; an XLA program, no Pallas "
-                     "kernel)",
+         "replaces": "pgvector_tpu/index/hnsw_kernels.py:588 (_hop_step: "
+                     "the row-gather branch of _hop_body :401 with its "
+                     "E-selection and list gather, _hop_merge :554; an XLA "
+                     "program, no Pallas kernel)",
          "launches": sum(by_phase("gather_hop").values()),
          "launches_by_phase": by_phase("gather_hop"),
          "on_main_path": True,

@@ -1,11 +1,12 @@
 // The f32 / bf16 / f16 row scorer of the HNSW beam hop, shared by packed_hop.cu
 // (K2: rows are slabs of the packed cache) and gather_hop.cu (K6: rows of
 // the value table, gathered by id): ops/distance.py's dense_point_scores
-// in f32 for UNROLL candidate rows at once.  A group of `group` adjacent
-// lanes reads one candidate's row with N-value loads (16 bytes where the
-// rows are 16-byte aligned, else single values), the query sits in shared
-// memory in f32, and a shuffle tree sums the group's partial sums.  bf16
-// and f16 values are widened to f32 exactly before any arithmetic.
+// in f32 for UNROLL (K2) or more candidate rows at once.  A group of
+// `group` adjacent lanes reads one candidate's row with N-value loads (16
+// bytes where the rows are 16-byte aligned, else single values), the
+// query sits in shared memory in f32, and a shuffle tree sums the group's
+// partial sums.  bf16 and f16 values are widened to f32 exactly before
+// any arithmetic.
 
 #pragma once
 
@@ -72,23 +73,23 @@ struct Load<T, 1> {
   }
 };
 
-// The distances of UNROLL rows (row[u], where live[u]) to the query s_q
-// (d values, f32, shared memory): every lane of a group of `group` lanes
-// (gl its lane in the group) adds its share; on return every lane of the
-// group holds the sums, negated for the inner product.  Every lane of the
-// warp calls it with the same trip counts (shuffles).
-template <typename T, int N>
-__device__ __forceinline__ void score_rows(const T* (&row)[UNROLL],
-                                           bool (&live)[UNROLL],
+// The distances of U rows (row[u], where live[u]; U = UNROLL for K2) to
+// the query s_q (d values, f32, shared memory): every lane of a group of
+// `group` lanes (gl its lane in the group) adds its share; on return every
+// lane of the group holds the sums, negated for the inner product.  Every
+// lane of the warp calls it with the same trip counts (shuffles).
+template <typename T, int N, int U = UNROLL>
+__device__ __forceinline__ void score_rows(const T* (&row)[U],
+                                           bool (&live)[U],
                                            const float* s_q, int d,
                                            int group, int gl, int metric,
-                                           float (&acc)[UNROLL]) {
+                                           float (&acc)[U]) {
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) acc[u] = 0.f;
+  for (int u = 0; u < U; ++u) acc[u] = 0.f;
   for (int e0 = gl * N; e0 < d; e0 += group * N) {
-    float v[UNROLL][N];
+    float v[U][N];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int u = 0; u < U; ++u) {
       if (live[u]) {
         Load<T, N>::get(row[u] + e0, v[u]);
       } else {
@@ -97,7 +98,7 @@ __device__ __forceinline__ void score_rows(const T* (&row)[UNROLL],
       }
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
+    for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         const float q = s_q[e0 + i];
@@ -112,7 +113,7 @@ __device__ __forceinline__ void score_rows(const T* (&row)[UNROLL],
       }
   }
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
+  for (int u = 0; u < U; ++u) {
     for (int off = group / 2; off > 0; off >>= 1)
       acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
     if (metric == IP) acc[u] = -acc[u];

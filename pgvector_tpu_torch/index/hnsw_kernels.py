@@ -37,11 +37,14 @@ row-gather hop.  The packed query hop of a dense index is one kernel, K2
 (K2 takes no table, as the reference's Pallas tail); under ``hash1`` or
 ``hash2`` the hop scores the same slabs in plain torch ops and probes the
 table before scoring.  The row-gather hop of a dense index (every build
-wave's beam) is K6 (:func:`..ops.gather_hop.gather_hop`) under the same
-condition, and SelectNeighbors' keep/prune loop is K3
-(:func:`..ops.select_neighbors.select_neighbors`) everywhere.  Every bit
-distance — hop, wave search and pairwise select block — is K5
-(:func:`..ops.bit_scan.bit_point_scores`).
+wave's beam) is, under the same condition, one K6 launch a hop
+(:func:`..ops.gather_hop.gather_hop`: the E-selection, the list reads and
+the merge in one kernel, the pool kept packed from hop to hop), and
+SelectNeighbors' keep/prune loop is K3
+(:func:`..ops.select_neighbors.select_neighbors`) everywhere, which for
+dense L2, inner product and cosine forms the pairwise distances from the
+Gram block itself.  Every bit distance — hop, wave search and pairwise
+select block — is K5 (:func:`..ops.bit_scan.bit_point_scores`).
 
 The mesh build (:func:`wave_search_sharded`, :func:`connect_level_sharded`)
 splits a wave's queries and its select rows and backlink chunks over the
@@ -64,10 +67,10 @@ from ..ops.distance import (dense_point_scores, dot_precision,
 # the int8 slab's scorer sits beside dense_point_scores, which K2's plain
 # version imports; the reference keeps it here (hnsw_kernels.py:202)
 from ..ops.distance import int8_point_scores  # noqa: F401
-from ..ops.gather_hop import dedupe_hop, gather_hop
+from ..ops.gather_hop import dedupe_hop, gather_hop, hop_buffers
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
-from ..ops.select_neighbors import select_neighbors
+from ..ops.select_neighbors import Gram, form_pairs, select_neighbors
 from ..parallel.mesh import all_gather, shard_rows, to_device
 
 _MASK32 = 0xFFFFFFFF
@@ -299,7 +302,7 @@ def visited_probe(table: torch.Tensor, elems: torch.Tensor,
 
 def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
               expand: int = 1, packed=None, metric: Optional[Metric] = None,
-              visited=None, disc=None, vmode: str = "off", rows=None):
+              visited=None, disc=None, vmode: str = "off"):
     """One expansion hop: pop the ``expand`` nearest unexpanded candidates
     per query, gather their neighbors, score the unvisited ones and merge
     them into the pool.  Returns (pool_d, pool_i, pool_x, visited, done).
@@ -322,13 +325,10 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     run in K2, which takes no visited set and no discarded pool (as the
     reference's Pallas tail); otherwise the slabs are scored in torch ops
     after the duplicate, pool and visited checks (the reference's packed
-    path outside its Pallas tail, hnsw_kernels.py:464-516).
-
-    ``rows`` — the (N, D) value table of a dense index, whose rows the
-    ``metric`` scores: with the visited set ``off`` and no discarded pool
-    the dedupe, the pool mask, the row scores and the merge run in K6
-    (:func:`..ops.gather_hop.gather_hop`); otherwise, and for bit and
-    sparse values, in torch ops through ``score``."""
+    path outside its Pallas tail, hnsw_kernels.py:464-516).  Without
+    ``packed`` the candidates' rows are scored through ``score`` (a dense
+    index's hops with the visited set ``off`` and no discarded pool take
+    K6 instead, in :func:`search_layer`)."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -361,13 +361,6 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
                                    vmode)
     # all selected candidates' neighbors in one flattened gather
     nb = neighbors_of(sel_flat)
-    if rows is not None and vmode == "off" and disc is None:
-        # the dedupe, pool mask, row scores and merge in one kernel (K6)
-        pool_packed = pool_i * 2 + pool_x.to(torch.int32)
-        d, pp = gather_hop(pool_d.contiguous(), pool_packed.contiguous(),
-                           sel_flat.contiguous(), nb.contiguous(), rows,
-                           qs.contiguous(), ef, metric)
-        return d, pp >> 1, (pp & 1) == 1, visited, done
     nbrs = torch.where(sel_flat[:, None] >= 0, nb, -1).reshape(nq, -1)
     if sel_elem.shape[1] > 1:
         # dedupe within the hop (two expanded nodes sharing a neighbor)
@@ -470,13 +463,22 @@ def _pool_seed(init_d, init_i, visited, ef: int, vmode: str = "off"):
 
 def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
                  max_steps: int, expand: int = 1, packed=None, metric=None,
-                 visited=None, disc=None, vmode: str = "off", rows=None):
+                 visited=None, disc=None, vmode: str = "off", rows=None,
+                 lists=None):
     """Algorithm 2 (HnswSearchLayer, hnswutils.c:822-985), batched.
     Returns (pool_d, pool_i, steps); with ``disc`` (a (disc_d, disc_i)
     pair), (pool_d, pool_i, visited, disc, steps, scanned), ``scanned``
     each query's scored candidates.  One host read per hop decides whether
-    every query is done.  ``packed`` and ``rows`` select the hop's kernel
-    (:func:`_hop_body`)."""
+    every query is done.  ``packed`` selects K2 (:func:`_hop_body`);
+    ``rows``, the (N, D) value table of a dense index, with ``lists``, the
+    level's tables ``(nbr0, nbr_up, up_slot, level)``, selects K6 when the
+    visited set is ``off`` and there is no discarded pool: each hop is one
+    :func:`..ops.gather_hop.gather_hop` call on the packed pool and one
+    read of its count of queries not done."""
+    if (rows is not None and lists is not None and packed is None
+            and disc is None and vmode == "off"):
+        return _gather_search(qs, init_d, init_i, ef, max_steps, expand,
+                              metric, rows, lists)
     pool_d, pool_i, pool_x, visited = _pool_seed(init_d, init_i, visited,
                                                  ef, vmode)
     scanned = (torch.zeros(pool_d.shape[0], dtype=torch.int32,
@@ -485,7 +487,7 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
     while steps < max_steps:
         out = _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef,
                         expand, packed=packed, metric=metric, visited=visited,
-                        disc=disc, vmode=vmode, rows=rows)
+                        disc=disc, vmode=vmode)
         if disc is None:
             pool_d, pool_i, pool_x, visited, done = out
         else:
@@ -497,6 +499,31 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
     if disc is None:
         return pool_d, pool_i, steps
     return pool_d, pool_i, visited, disc, steps, scanned
+
+
+def _gather_search(qs, init_d, init_i, ef: int, max_steps: int, expand: int,
+                   metric, rows, lists):
+    """:func:`search_layer` on K6: the pool packed once, one
+    :func:`..ops.gather_hop.gather_hop` a hop (its count of queries not
+    done read on the host), unpacked once at the end."""
+    nbr0, nbr_up, up_slot, level = lists
+    pool_d, pool_i, _ = _init_pool(init_d, init_i, ef)
+    pool_p = (pool_i * 2).contiguous()  # nothing expanded yet
+    qs = qs.contiguous()
+    # on the card the hops write into two sets of buffers in turn
+    outs = [None, None]
+    if pool_d.is_cuda:
+        outs[0] = hop_buffers(pool_d.shape[0], ef, pool_d.device)
+        outs[1] = hop_buffers(pool_d.shape[0], ef, pool_d.device, outs[0][4])
+    steps = 0
+    while steps < max_steps:
+        pool_d, pool_p, _, left = gather_hop(
+            pool_d, pool_p, nbr0, nbr_up, up_slot, level, rows, qs, ef,
+            expand, metric, out=outs[steps % 2])
+        steps += 1
+        if int(left.item()) == 0:
+            break
+    return pool_d, pool_p >> 1, steps
 
 
 # ---------------------------------------------------------------------------
@@ -546,26 +573,53 @@ SHARD_MIN_QUERIES = 16
 
 def _gram(v: torch.Tensor) -> torch.Tensor:
     """(T, C, C) products ``v @ v.T`` of a (T, C, D) block, PAIR_BLOCK
-    rows a call (the last block zero-padded)."""
+    rows a call (the last block zero-padded), each full block written in
+    place into the result."""
     t = v.shape[0]
     if t <= 1:
         return torch.bmm(v, v.transpose(1, 2))
-    out = []
+
+    def padded(blk):
+        n = blk.shape[0]
+        blk = torch.cat([blk, blk.new_zeros((PAIR_BLOCK - n,)
+                                            + tuple(blk.shape[1:]))])
+        return torch.bmm(blk, blk.transpose(1, 2))[:n]
+
+    if t < PAIR_BLOCK:
+        return padded(v)
+    out = v.new_empty((t, v.shape[1], v.shape[1]))
     for s in range(0, t, PAIR_BLOCK):
         blk = v[s: s + PAIR_BLOCK]
-        n = blk.shape[0]
-        if n < PAIR_BLOCK:
-            blk = torch.cat([blk, blk.new_zeros((PAIR_BLOCK - n,)
-                                                + tuple(blk.shape[1:]))])
-        out.append(torch.bmm(blk, blk.transpose(1, 2))[:n])
-    return out[0] if len(out) == 1 else torch.cat(out)
+        if blk.shape[0] == PAIR_BLOCK:
+            torch.bmm(blk, blk.transpose(1, 2), out=out[s: s + PAIR_BLOCK])
+        else:
+            out[s:] = padded(blk)
+    return out
+
+
+def _pair_block(kind: str, metric: Metric, values, elems: torch.Tensor,
+                sdim: int = 0):
+    """What SelectNeighbors (K3) takes for each row's candidate elements:
+    for dense L2/IP/cos the :class:`..ops.select_neighbors.Gram` form of
+    the block (the products of :func:`_gram` and, for L2, the norms; K3
+    forms each entry it reads), else the formed (T, C, C) block of
+    :func:`_pairwise_dists`."""
+    if kind == "dense" and metric in (Metric.L2, Metric.IP, Metric.COSINE):
+        v = values[_long(elems)].float()  # (T, C, D)
+        dot_precision()
+        ip = _gram(v)
+        if metric is Metric.L2:
+            return Gram(ip, torch.sum(v * v, dim=-1), True)
+        return Gram(ip, None, False)
+    return _pairwise_dists(kind, metric, values, elems, sdim)
 
 
 def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
                     sdim: int = 0) -> torch.Tensor:
     """(T, C, C) stored distances among each row's candidate elements.
 
-    Dense L2/IP/cos ride batched f32 products (:func:`_gram`; the
+    Dense L2/IP/cos ride batched f32 products (:func:`_pair_block`'s Gram
+    form, formed by :func:`..ops.select_neighbors.form_pairs`; the
     reference left them to XLA at HIGHEST precision); dense L1 is a
     broadcast block.  Bit runs
     K5 with the candidates' own words as the queries, (T·C, W) against
@@ -573,23 +627,16 @@ def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
     ``sdim > 0`` (L2/IP/cos) scatters each candidate dense into (sdim,)
     lanes and takes one batched product plus norm corrections; otherwise
     (L1, huge dims) the merge join of every candidate against its row."""
+    if kind == "dense" and metric in (Metric.L2, Metric.IP, Metric.COSINE):
+        return form_pairs(_pair_block(kind, metric, values, elems),
+                          elems >= 0)
     ok = (elems[:, :, None] >= 0) & (elems[:, None, :] >= 0)
     safe = _long(elems)
     t, c = elems.shape
     if kind == "dense":
         v = values[safe].float()  # (T, C, D)
-        if metric in (Metric.L2, Metric.IP, Metric.COSINE):
-            dot_precision()
-            ip = _gram(v)
-            if metric is Metric.L2:
-                sq = torch.sum(v * v, dim=-1)
-                d = torch.clamp(sq[:, :, None] - 2.0 * ip + sq[:, None, :],
-                                min=0.0)
-            else:
-                d = -ip
-        else:
-            d = torch.sum(torch.abs(v[:, :, None, :] - v[:, None, :, :]),
-                          dim=-1)
+        d = torch.sum(torch.abs(v[:, :, None, :] - v[:, None, :, :]),
+                      dim=-1)
     elif kind == "bit":
         rows = elems[:, None, :].expand(t, c, c).reshape(t * c, c)
         d = bit_point_scores(metric, values[safe.reshape(-1)], values,
@@ -625,7 +672,8 @@ def _pairwise_dists(kind: str, metric: Metric, values, elems: torch.Tensor,
 
 
 def _select_from(cand, cand_d, pair, lm: int, forced=None):
-    """SelectNeighbors over (T, C) pools → ((T, lm) ids, (T, lm) kept)."""
+    """SelectNeighbors over (T, C) pools → ((T, lm) ids, (T, lm) kept);
+    ``pair`` the pools' block or its Gram form (:func:`_pair_block`)."""
     pos, kept = select_neighbors(cand_d, pair, cand >= 0, lm, forced)
     sel = torch.where(pos >= 0, torch.gather(cand, 1, _long(pos)), -1)
     return sel, kept & (pos >= 0), pos
@@ -635,7 +683,7 @@ def select_connections(kind, metric, values, pool_d, pool_i, lm: int,
                        sdim: int = 0):
     """SelectNeighbors over each base element's candidate pool →
     ((Q, lm) neighbor element ids, (Q, lm) heuristic-kept flags)."""
-    pair = _pairwise_dists(kind, metric, values, pool_i, sdim)
+    pair = _pair_block(kind, metric, values, pool_i, sdim)
     sel, kept, _ = _select_from(pool_i, pool_d, pair, lm)
     return sel, kept
 
@@ -658,7 +706,7 @@ def merge_backlinks_wholesale(kind, metric, values, old_lists, old_kept,
     forced = forced & (cand >= 0)
     base_d = score(elems_as_queries(kind, values, targets), cand)
     base_d = torch.where(targets[:, None] >= 0, base_d, torch.inf)
-    pair = _pairwise_dists(kind, metric, values, cand, sdim)
+    pair = _pair_block(kind, metric, values, cand, sdim)
     sel, kept, _ = _select_from(cand, base_d, pair, lm, forced)
     return sel, kept
 
@@ -694,7 +742,7 @@ def merge_backlinks(kind, metric, values, old_lists, old_kept, new_src,
         forced = torch.cat([curk, curk.new_zeros((t, 1))], dim=1)
         base_d = score(t_rep, cand)
         base_d = torch.where(targets[:, None] >= 0, base_d, torch.inf)
-        pair = _pairwise_dists(kind, metric, values, cand, sdim)
+        pair = _pair_block(kind, metric, values, cand, sdim)
         pruned, pruned_k, _ = _select_from(cand, base_d, pair, lm, forced)
         keep = skip[:, None]
         cur = torch.where(keep, cur, torch.where(has_free[:, None], appended,
@@ -771,7 +819,7 @@ def _connect_select(kind, metric, values, pool_d, pool_i, lm: int,
                     sdim: int):
     """Step 2: SelectNeighbors over each row's pool (Algorithm 4) →
     (selected ids, their distances, kept flags), each (rows, lm)."""
-    pair = _pairwise_dists(kind, metric, values, pool_i, sdim)
+    pair = _pair_block(kind, metric, values, pool_i, sdim)
     sel, keptf, pos = _select_from(pool_i, pool_d, pair, lm)
     sel_d = torch.where(pos >= 0, torch.gather(pool_d, 1, _long(pos)),
                         torch.inf)
@@ -976,7 +1024,8 @@ def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
         pd, pi, _ = search_layer(
             score, lambda e: nbrs(e, lc), qs_, pool_d, pool_i, ef=ef,
             max_steps=4 * ef + 64, expand=expand, metric=metric,
-            visited=visited, vmode=vmode, rows=rows)
+            visited=visited, vmode=vmode, rows=rows,
+            lists=(nbr0, nbr_up, up_slot, lc))
         return pd, pi
 
     return _wave_level_loop(score, qs, lv, entry, entry_level, ef, l_unroll,
@@ -1092,7 +1141,8 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
         score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
         ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
         packed=packed, metric=metric, visited=visited, vmode=vmode,
-        rows=values if kind == "dense" else None)
+        rows=values if kind == "dense" else None,
+        lists=(nbr0, nbr_up, up_slot, 0))
     if rerank:
         pool_d = score(qs, pool_i)  # exact f32 distances for the final pool
         pool_d, order = torch.sort(pool_d, dim=1, stable=True)

@@ -51,15 +51,16 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P],
     # qs, table, rows, nb, r, w, jaccard, out, stream
     "pgvt_bit_point_scores": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # base_d, pair_d, valid, forced, t_rows, c, lm, out_pos, out_kept,
-    # stream
-    "pgvt_select_neighbors": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # c
-    "pgvt_select_neighbors_staged": [_I],
-    # pool_d, pool_p, sel, nb, rows, n_rows, qs, q, ef, e_sel, m2, d,
-    # dtype, q_type, metric, out_d, out_p, stream
-    "pgvt_gather_hop": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P, _P, _P],
+    # base_d, pair, sq, mode, valid, forced, t_rows, c, lm, out_pos,
+    # out_kept, stream
+    "pgvt_select_neighbors": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
+                              _P],
+    # pool_d, pool_p, nbr0, cap, m2, nbr_up, up_slot, slots, levels, m,
+    # level, rows, n_rows, qs, q, ef, e_sel, d, dtype, q_type, metric,
+    # out_d, out_p, out_done, work, out_left, stream
+    "pgvt_gather_hop": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I,
+                        _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                        _P],
 }
 
 _lock = threading.Lock()

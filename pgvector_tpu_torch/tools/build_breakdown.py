@@ -5,20 +5,23 @@ their plain versions, in one process on one card.
         [--routes plain,kernels] [--deletes 10000] [--inserts 5000]
 
 Route ``kernels`` is the package as it is: every SelectNeighbors runs K3
-(``ops/select_neighbors.py``) and every dense beam hop K6
-(``ops/gather_hop.py``).  Route ``plain`` points
-``hnsw_kernels.select_neighbors`` and ``hnsw_kernels.gather_hop`` at their
-plain versions, the eager torch ops the build ran before K3 and K6.  For
-each route, on a fresh upload of ``bench.make_data``'s surrogate (seed 0,
-the recipe of :func:`.k1_breakdown.clustered`): the build (m 16,
-ef_construction 64, wave 1,024, build beam 4) with each wave's search and
-connect ended by a device sync (``PGVECTOR_TPU_PHASE_SYNC=1``, so the
-host timers split the build as the device does), its middle wave through
-torch.profiler (kernel launches and their device milliseconds) and every
-other wave timed alone; recall@10 at ef 40 and 100 (query beam 8, K2)
-against K1's exact top-10; then VACUUM after ``deletes`` random deletes
-and INSERT of ``inserts`` new rows near the deleted ones.  Prints one JSON
-line a route, each with the card's name and power limit.
+(``ops/select_neighbors.py``, the dense pools in their Gram form) and
+every dense beam hop is one K6 launch (``ops/gather_hop.py``, the whole
+hop).  Route ``plain`` points ``hnsw_kernels.select_neighbors`` and
+``hnsw_kernels.gather_hop`` at their plain versions, eager torch ops.
+For each route, on a fresh upload of ``bench.make_data``'s surrogate
+(seed 0, the recipe of :func:`.k1_breakdown.clustered`): the build (m
+16, ef_construction 64, wave 1,024, build beam 4) with each wave's search
+and connect ended by a device sync (``PGVECTOR_TPU_PHASE_SYNC=1``, so
+the host timers split the build as the device does: seconds and shares
+of the build), its middle wave through torch.profiler (the CUDA kernels
+it launches, which do not depend on the machine, their device
+milliseconds, the wave's wall milliseconds, the device's idle share and
+the busiest kernels) and every other wave timed alone; recall@10 at ef
+40 and 100 (query beam 8, K2) against K1's exact top-10; then VACUUM
+after ``deletes`` random deletes and INSERT of ``inserts`` new rows near
+the deleted ones.  Prints one JSON line a route, each with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ ROUTES = {"kernels": (select_neighbors, gather_hop),
           "plain": (select_neighbors_plain, gather_hop_plain)}
 
 
-def _profiled(fn):
-    """(CUDA kernel launches, their summed device ms, wall ms) of one
-    call of ``fn`` under torch.profiler."""
+def _profiled(fn, top=6):
+    """(CUDA kernel launches, their summed device ms, wall ms, the
+    ``top`` busiest kernels as [name, ms, launches]) of one call of
+    ``fn`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,9 +61,13 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: -e.self_device_time_total)
     return (sum(e.count for e in ev),
-            sum(e.self_device_time_total for e in ev) / 1e3, wall)
+            sum(e.self_device_time_total for e in ev) / 1e3, wall,
+            [[e.key[:72], e.self_device_time_total / 1e3, e.count]
+             for e in ev[:top]])
 
 
 def run_route(route, db, qs, gt, args, dev):
@@ -125,14 +133,19 @@ def run_route(route, db, qs, gt, args, dev):
     idx.insert(rows)
     torch.cuda.synchronize()
     insert_s = time.perf_counter() - t0
-    kern, kern_ms, wall_ms = waves["profiled"]
+    kern, kern_ms, wall_ms, top = waves["profiled"]
+    search_s = split["hnsw.wave.search"]["total_s"]
+    connect_s = split["hnsw.wave.connect"]["total_s"]
     out = {"route": route, "n": n, "build_s": build_s,
-           "search_s": split["hnsw.wave.search"]["total_s"],
-           "connect_s": split["hnsw.wave.connect"]["total_s"],
+           "search_s": search_s, "connect_s": connect_s,
+           "search_share": search_s / build_s,
+           "connect_share": connect_s / build_s,
            "wave_ms_mean": float(np.mean(waves["ms"])),
            "wave_ms_max": float(np.max(waves["ms"])), "waves": waves["calls"],
            "profiled_wave": {"wave": middle, "cuda_kernels": kern,
-                             "kernel_ms": kern_ms, "wall_ms": wall_ms},
+                             "kernel_ms": kern_ms, "wall_ms": wall_ms,
+                             "idle_share": 1.0 - kern_ms / wall_ms,
+                             "top_kernels_ms": top},
            "recall_at_10": recall, "build_launches": launches,
            "vacuum_s": vacuum_s, "deleted": args.deletes,
            "repaired": idx.last_vacuum["repaired"],

@@ -10,10 +10,12 @@ versions, and the bit and sparse indexes on CUDA against the CPU; K2's
 int8 slab equal to its plain version (L1 within ``int8_l1_bound``), and
 the grouped exact engine on the card against the tiled scan; K3
 (select_neighbors) equal to its plain version bit for bit, from C = 1 to
-1,100 (both the shared-memory and the device-memory route), and K6
-(gather_hop) against its plain version for every metric and value type,
-with a build that runs every select through K3 and every hop through
-K6; the
+1,100, on the formed block and on the Gram form (L2, inner product and
+cosine, NaN and ±inf among the products), and K6 (gather_hop, the whole
+hop) against its plain version for every metric and value type, level 0
+and above, done flags and the count of queries not done included, with
+a build that runs every select through K3 and every hop through one K6
+launch; the
 planner's calibrated pick against the timed paths; the mesh paths on four
 shards of one card (the sharded exact search through K1 against
 FlatIndex, the mesh build bit for bit, the fan-out against the 1-D
@@ -56,10 +58,10 @@ from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
 from pgvector_tpu_torch.ops.gather_hop import (  # noqa: E402
     gather_hop, gather_hop_plain)
 from pgvector_tpu_torch.ops.select_neighbors import (  # noqa: E402
-    select_neighbors, select_neighbors_plain, staged)
+    Gram, select_neighbors, select_neighbors_plain)
 from torch_parity import (  # noqa: E402
-    assert_same_pool, assert_same_topk, gather_hop_case, int8_hop_case,
-    packed_hop_case, select_case)
+    assert_same_pool, assert_same_topk, gather_hop_case, gram_case,
+    int8_hop_case, packed_hop_case, select_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -269,8 +271,9 @@ def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
 def test_select_neighbors_kernel_equals_plain(dev, t, c, lm, forced):
     """K3 against its plain version bit for bit on seeded pools with
     ties, invalid, +inf and forced candidates: C below, at and far above
-    lm, up to 110 through shared memory and beyond it (C = 111, 400 and
-    1,100) from device memory."""
+    lm, the sorts in registers (C up to 512) and in shared memory (C =
+    1,100); the formed block, then the Gram form of L2 and of the inner
+    product with NaN and ±inf among the products."""
     args = [None if a is None else torch.from_numpy(a).to(dev)
             for a in select_case(c + lm + forced, t, c, forced)]
     launches = select_neighbors.launches
@@ -280,7 +283,16 @@ def test_select_neighbors_kernel_equals_plain(dev, t, c, lm, forced):
     p0, k0 = select_neighbors_plain(*args[:3], lm, args[3])
     assert p1.dtype == p0.dtype == torch.int32
     assert torch.equal(p1, p0) and torch.equal(k1, k0)
-    assert staged(c) == (c <= 110)
+    for l2 in (True, False):
+        base, ip, sq, valid, fc = (
+            None if a is None else torch.from_numpy(a).to(dev)
+            for a in gram_case(c + lm + forced + l2, t, c, l2, forced))
+        g = Gram(ip, sq, l2)
+        p1, k1 = select_neighbors(base, g, valid, lm, fc)
+        torch.cuda.synchronize()
+        p0, k0 = select_neighbors_plain(base, g, valid, lm, fc)
+        assert torch.equal(p1, p0) and torch.equal(k1, k0)
+    assert select_neighbors.launches == launches + 3
 
 
 def test_select_neighbors_kernel_rejects(dev):
@@ -296,42 +308,64 @@ def test_select_neighbors_kernel_rejects(dev):
         select_neighbors(base, pair, valid.int(), 8, fc)
     with pytest.raises(ValueError):
         select_neighbors(base, pair, valid, 0, fc)
+    with pytest.raises(ValueError):  # L2's Gram form needs the norms
+        select_neighbors(base, Gram(pair, None, True), valid, 8, fc)
+    with pytest.raises(ValueError):  # norms of another shape
+        select_neighbors(base, Gram(pair, base[:, :8].contiguous(), True),
+                         valid, 8, fc)
+
+
+def _hop_args(case, dev, level, dtype=torch.float32, q_dtype=None):
+    """gather_hop's arguments from torch_parity.gather_hop_case."""
+    a = [torch.from_numpy(x).to(dev) for x in case]
+    rows = a[5].to(dtype)
+    return (*a[:5], level, rows, a[6].to(q_dtype or dtype))
 
 
 @pytest.mark.parametrize("d", [7, 33, 128, 960])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("metric", ["L2", "IP", "L1"])
-@pytest.mark.parametrize("ef,e_sel", [(24, 4), (64, 4), (100, 1), (40, 8)])
+@pytest.mark.parametrize("ef,e_sel", [(24, 4), (64, 4), (100, 1), (40, 8),
+                                      (1000, 4)])
 def test_gather_hop_kernel_matches_plain(dev, d, dtype, metric, ef, e_sel):
-    """K6 against its plain version on seeded hops: row-aligned and
-    unaligned rows (16-byte loads or single values), every metric code and
-    value type, queries in the table's type and in f32, one to eight
-    lists a row (with E > 1 in Knuth-key order, repeats across lists)."""
-    case = gather_hop_case(d + ef + e_sel, 37, ef, e_sel, d=d, cap=1200)
-    args = [torch.from_numpy(a).to(dev) for a in case]
-    args[4] = args[4].to(dtype)
-    if d != 33:
-        args[5] = args[5].to(dtype)
-    launches = gather_hop.launches
-    d1, p1 = gather_hop(*args, ef, Metric[metric])
-    torch.cuda.synchronize()
-    assert gather_hop.launches == launches + 1
-    d0, p0 = gather_hop_plain(*args, ef, Metric[metric])
-    assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+    """K6, the whole hop, against its plain version on seeded pools:
+    row-aligned and unaligned rows (16-byte loads or single values), every
+    metric code and value type, queries in the table's type and in f32,
+    one to eight lists a row (with E > 1 in Knuth-key order, repeats
+    across lists), level 0 and level 2 (m-wide lists, elements without a
+    slot), listed ids past the rows, NaN, +inf, tied, fully expanded and
+    empty pools, the sorts in registers and (ef 1,000) in shared memory;
+    the done flags and the count of queries not done equal."""
+    case = gather_hop_case(d + ef + e_sel, 37, ef, d=d, cap=1200, levels=2)
+    for level in (0, 2):
+        args = _hop_args(case, dev, level, dtype,
+                         torch.float32 if d == 33 else dtype)
+        launches = gather_hop.launches
+        d1, p1, done1, left1 = gather_hop(*args, ef, e_sel, Metric[metric])
+        torch.cuda.synchronize()
+        assert gather_hop.launches == launches + 1
+        d0, p0, done0, left0 = gather_hop_plain(*args, ef, e_sel,
+                                                Metric[metric])
+        assert torch.equal(done1, done0) and torch.equal(left1, left0)
+        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+        assert bool(done1[3]) and bool(done1[7]) and not bool(done1[0])
 
 
 def test_gather_hop_kernel_rejects(dev):
-    args = [torch.from_numpy(a).to(dev) for a in gather_hop_case(2, 8, 24, 4)]
+    args = _hop_args(gather_hop_case(2, 8, 24), dev, 0)
     with pytest.raises(ValueError):  # f64 rows
-        gather_hop(*args[:4], args[4].double(), args[5], 24, Metric.L2)
+        gather_hop(*args[:6], args[6].double(), args[7], 24, 4, Metric.L2)
     with pytest.raises(ValueError):  # the queries' width
-        gather_hop(*args[:5], args[5][:, :8].contiguous(), 24, Metric.L2)
-    with pytest.raises(ValueError):  # lists for another number of rows
-        gather_hop(*args[:3], args[3][:8], *args[4:], 24, Metric.L2)
-    with pytest.raises(ValueError):  # ef + W over the tail's 4,096 lanes
-        wide = args[3].repeat(1, 80)
-        gather_hop(*args[:3], wide, *args[4:], 24, Metric.L2)
+        gather_hop(*args[:7], args[7][:, :8].contiguous(), 24, 4, Metric.L2)
+    with pytest.raises(ValueError):  # slots for another number of elements
+        gather_hop(*args[:4], args[4][:8].contiguous(), *args[5:], 24, 4,
+                   Metric.L2)
+    with pytest.raises(ValueError):  # a level the tables do not hold
+        gather_hop(*args[:5], 2, *args[6:], 24, 4, Metric.L2)
+    with pytest.raises(ValueError):  # ef + W over the sort's 4,096 lanes
+        wide = args[2].repeat(1, 80)
+        gather_hop(*args[:2], wide, *args[3:], 24, 4, Metric.L2)
 
 
 def test_build_runs_select_and_hops_on_kernels(dev, monkeypatch):

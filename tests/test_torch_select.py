@@ -10,6 +10,13 @@ through it padded to lm with invalid candidates (which never take a
 slot); the port takes the pool as it is and pads its output.  On the CPU
 the wrapper ``select_neighbors`` and ``hnsw_kernels.select_neighbors``
 route only to the plain version.
+
+The Gram form (dense L2, inner product and cosine: the (T, C, C) products
+and the norms, each entry formed where it is read) gives the formed
+block's selects bit for bit, with NaN and ±inf among the products and
+invalid lanes, from C = 1 to 1,100, and the reference's selects on the
+block formed in numpy; ``hnsw_kernels._pair_block`` hands the build's
+selects that form, and ``_pairwise_dists`` still forms the same block.
 """
 
 import numpy as np
@@ -21,9 +28,10 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from pgvector_tpu.index import hnsw_kernels as JK  # noqa: E402
+from pgvector_tpu_torch import Metric  # noqa: E402
 from pgvector_tpu_torch.index import hnsw_kernels as TK  # noqa: E402
 from pgvector_tpu_torch.ops import select_neighbors as TS  # noqa: E402
-from torch_parity import select_case  # noqa: E402
+from torch_parity import formed_block, gram_case, select_case  # noqa: E402
 
 
 def _reference(base, pair, valid, forced, lm):
@@ -100,3 +108,84 @@ def test_select_wrappers_route_to_plain_on_cpu(forced):
         np.testing.assert_array_equal(k1, k0)
     assert TK.select_neighbors is TS.select_neighbors
     assert TS.select_neighbors.launches == launches
+
+
+def _gram(ip, sq, l2):
+    return TS.Gram(torch.from_numpy(ip),
+                   None if sq is None else torch.from_numpy(sq), l2)
+
+
+@pytest.mark.parametrize("t,c,lm", [(6, 1, 8), (6, 5, 8), (6, 33, 32),
+                                    (8, 64, 32), (8, 80, 32), (5, 200, 16),
+                                    (2, 1100, 32)])
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("forced", [False, True])
+def test_select_gram_plain_equals_formed_block(t, c, lm, l2, forced):
+    """The Gram form's plain select equals the formed block's bit for
+    bit, and form_pairs forms the numpy block's bits (NaN kept)."""
+    base, ip, sq, valid, fc = gram_case(c + lm + 3 * l2 + forced, t, c, l2,
+                                        forced)
+    block = formed_block(ip, sq, valid)
+    g = _gram(ip, sq, l2)
+    np.testing.assert_array_equal(
+        TS.form_pairs(g, torch.from_numpy(valid)).numpy(), block)
+    p0, k0 = _port(base, block, valid, fc, lm)
+    p1, k1 = TS.select_neighbors_plain(
+        torch.from_numpy(base), g, torch.from_numpy(valid), lm,
+        None if fc is None else torch.from_numpy(fc))
+    np.testing.assert_array_equal(p1.numpy(), p0)
+    np.testing.assert_array_equal(k1.numpy(), k0)
+    assert k0.any() or c < 2
+
+
+@pytest.mark.parametrize("t,c,lm", [(6, 33, 32), (8, 80, 32), (2, 1100, 32)])
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("forced", [False, True])
+def test_select_gram_equals_reference(t, c, lm, l2, forced):
+    """The wrapper on the Gram form (the plain version on the CPU) against
+    the reference's select on the block formed in numpy."""
+    base, ip, sq, valid, fc = gram_case(c + lm + 3 * l2 + forced, t, c, l2,
+                                        forced)
+    p0, k0 = _reference(base, formed_block(ip, sq, valid), valid, fc, lm)
+    launches = TS.select_neighbors.launches
+    p1, k1 = TK.select_neighbors(
+        torch.from_numpy(base), _gram(ip, sq, l2), torch.from_numpy(valid),
+        lm, None if fc is None else torch.from_numpy(fc))
+    assert TS.select_neighbors.launches == launches
+    np.testing.assert_array_equal(p1.numpy(), p0)
+    np.testing.assert_array_equal(k1.numpy(), k0)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
+def test_pair_block_is_the_gram_form(metric):
+    """_pair_block gives dense L2 / IP / cosine pools their Gram form
+    (the norms for L2 only), _pairwise_dists still forms the block it
+    formed, and a select over either is the same."""
+    rng = np.random.default_rng(3)
+    vals = rng.normal(size=(300, 16)).astype(np.float32)
+    if metric == "COSINE":
+        vals /= np.linalg.norm(vals, axis=1, keepdims=True)
+    values = torch.from_numpy(vals)
+    elems = torch.from_numpy(rng.integers(0, 300, size=(20, 40))
+                             .astype(np.int32))
+    elems[rng.random((20, 40)) < 0.1] = -1
+    m = Metric[metric]
+    g = TK._pair_block("dense", m, values, elems)
+    assert isinstance(g, TS.Gram) and g.l2 == (metric == "L2")
+    assert (g.sq is not None) == g.l2
+    v = values[torch.clamp(elems, min=0).long()]
+    assert torch.equal(g.ip, TK._gram(v))
+    block = TK._pairwise_dists("dense", m, values, elems)
+    ok = (elems[:, :, None] >= 0) & (elems[:, None, :] >= 0)
+    if metric == "L2":
+        sq = torch.sum(v * v, dim=-1)
+        want = torch.clamp(sq[:, :, None] - 2.0 * g.ip + sq[:, None, :],
+                           min=0.0)
+    else:
+        want = -g.ip
+    assert torch.equal(block, torch.where(ok, want, torch.inf))
+    base = torch.from_numpy(rng.random((20, 40)).astype(np.float32))
+    a = TK._select_from(elems, base, g, 16)
+    b = TK._select_from(elems, base, block, 16)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -140,34 +140,105 @@ def select_case(seed, t, c, forced=True):
     return base, pair, valid, fc
 
 
-def gather_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
-    """Seeded numpy inputs of one row-gather hop: (pool_d, pool_p,
-    sel_flat, nb, rows, qs).  Pools are sorted, duplicate-free and partly
-    expanded; row 1's pool is half empty; list slots and selections are
-    partly -1; row 3 selects nothing; row 0 meets a pool entry among its
-    candidates and, with e_sel > 1, two of row 2's lists share ids."""
+def gram_case(seed, t, c, l2=True, forced=True, d=3):
+    """Seeded numpy inputs of one SelectNeighbors batch in the Gram form:
+    (base_d, ip, sq, valid, forced).  Candidates sit on a small integer
+    grid, so products and distances are exact and tie often; ``ip`` is
+    their (T, C, C) f32 products with a few NaN, +inf and -inf entries
+    planted, ``sq`` the norms (L2; else None); the base distances are the
+    formed distances to a base point (some +inf), about 10 % of
+    candidates are invalid, row 0 all; with ``forced`` about 20 % are
+    forced and row 1 all."""
     rng = np.random.default_rng(seed)
+    pts = rng.integers(-2, 3, size=(t, c + 1, d)).astype(np.float32)
+    v = pts[:, 1:]
+    ip = np.einsum("tid,tjd->tij", v, v).astype(np.float32)
+    spots = rng.random(ip.shape)
+    ip[spots < 0.01] = np.nan
+    ip[(spots >= 0.01) & (spots < 0.02)] = np.inf
+    ip[(spots >= 0.02) & (spots < 0.03)] = -np.inf
+    sq = (v * v).sum(-1).astype(np.float32) if l2 else None
+    b = pts[:, :1]
+    base = (((v - b) ** 2).sum(-1) if l2 else -(v * b).sum(-1))
+    base = base.astype(np.float32)
+    base[rng.random((t, c)) < 0.05] = np.inf
+    valid = rng.random((t, c)) > 0.1
+    valid[0] = False
+    fc = None
+    if forced:
+        fc = rng.random((t, c)) < 0.2
+        fc[min(1, t - 1)] = True
+    return base, ip, sq, valid, fc
+
+
+def formed_block(ip, sq, valid):
+    """The pairwise distances of a Gram form in numpy f32, each operation
+    rounded: (sq_i - 2·ip_ij) + sq_j clamped at 0 (NaN kept) with ``sq``,
+    else -ip_ij; +inf where either candidate is invalid."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        if sq is not None:
+            x = (sq[:, :, None] - np.float32(2.0) * ip) + sq[:, None, :]
+            d = np.where(x < 0, np.float32(0.0), x)
+        else:
+            d = -ip
+    ok = valid[:, :, None] & valid[:, None, :]
+    return np.where(ok, d, np.float32(np.inf)).astype(np.float32)
+
+
+def gather_hop_case(seed, q, ef, m=8, d=16, cap=400, levels=1):
+    """Seeded numpy inputs of one whole row-gather hop: (pool_d, pool_p,
+    nbr0, nbr_up, up_slot, rows, qs), the lists 2m wide at level 0 and m
+    wide on each of ``levels`` upper levels.  Pools are sorted (NaN last),
+    duplicate-free and partly expanded; list slots are partly -1, some
+    elements have no upper slot and some listed ids lie at or past the
+    ``cap`` rows.  Row 0 meets a pool entry among its best element's
+    candidates; row 1's pool is half empty; row 2's two best elements
+    share half their lists; row 3's pool is fully expanded; row 4 holds
+    a NaN at an expanded lane and one at an unexpanded lane; row 5 ends
+    in +inf lanes with ids; row 6's distances tie in pairs; row 7's pool
+    is empty."""
+    rng = np.random.default_rng(seed)
+    m2 = 2 * m
     rows = rng.normal(size=(cap, d)).astype(np.float32)
     qs = rng.normal(size=(q, d)).astype(np.float32)
+    nbr0 = np.stack([rng.choice(cap, m2, replace=False)
+                     for _ in range(cap)]).astype(np.int32)
+    nbr0[rng.random(nbr0.shape) < 0.1] = -1
+    nbr_up = np.stack([np.stack([rng.choice(cap, m, replace=False)
+                                 for _ in range(levels)])
+                       for _ in range(cap)]).astype(np.int32)
+    nbr_up[rng.random(nbr_up.shape) < 0.1] = -1
+    past = rng.random(nbr0.shape) < 0.03
+    nbr0[past] = cap + rng.integers(0, 50, size=int(past.sum()))
+    past = rng.random(nbr_up.shape) < 0.03
+    nbr_up[past] = cap + rng.integers(0, 50, size=int(past.sum()))
+    up_slot = np.arange(cap, dtype=np.int32)
+    up_slot[rng.random(cap) < 0.1] = -1
     pool_i = np.stack([rng.choice(cap, ef, replace=False)
                        for _ in range(q)]).astype(np.int32)
     pool_d = np.sort(rng.random((q, ef)).astype(np.float32) * 2 * d, axis=1)
     pool_x = rng.random((q, ef)) > 0.5
+    pool_x[:, 0] = False  # a best lane to expand
+    nbr0[pool_i[0, 0], 0] = pool_i[0, 1]
+    nbr_up[pool_i[0, 0], :, 0] = pool_i[0, 1]
     pool_i[1, ef // 2:] = -1
     pool_d[1, ef // 2:] = np.inf
     pool_x[1, ef // 2:] = False
-    sel = rng.integers(0, cap, size=(q, e_sel)).astype(np.int32)
-    sel[rng.random((q, e_sel)) < 0.2] = -1
-    nb = np.stack([rng.choice(cap, m2, replace=False)
-                   for _ in range(q * e_sel)]).astype(np.int32)
-    nb = nb.reshape(q, e_sel, m2)
-    nb[rng.random(nb.shape) < 0.1] = -1
-    sel[0, 0] = 7
-    nb[0, 0, 0] = pool_i[0, 0]
-    if e_sel > 1:
-        sel[2, :2] = (11, 12)
-        nb[2, 1, : m2 // 2] = nb[2, 0, : m2 // 2]
-    sel[3] = -1
+    if q > 2:
+        pool_x[2, :2] = False
+        a, b = pool_i[2, :2]
+        nbr0[b, : m] = nbr0[a, : m]
+        nbr_up[b, :, : m // 2] = nbr_up[a, :, : m // 2]
+    if q > 3:
+        pool_x[3] = True
+    if q > 4 and ef >= 4:
+        pool_x[4, -2:] = (True, False)
+        pool_d[4, -2:] = np.nan
+    if q > 5 and ef >= 4:
+        pool_d[5, -3:] = np.inf
+    if q > 6:
+        pool_d[6] = np.repeat(pool_d[6, ::2], 2)[:ef]
+    if q > 7:
+        pool_i[7], pool_d[7], pool_x[7] = -1, np.inf, False
     pool_p = pool_i * 2 + pool_x.astype(np.int32)
-    return (pool_d, pool_p, sel.reshape(-1), nb.reshape(q * e_sel, m2),
-            rows, qs)
+    return pool_d, pool_p, nbr0, nbr_up, up_slot, rows, qs
