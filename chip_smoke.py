@@ -119,6 +119,91 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def scan_launches(idx):
+    """The layer-0 hops the last search of ``idx`` launched (one K2 or K6
+    launch each), held against its steps: the beam loop reads its count
+    of queries not done every HOP_READ_EVERY hops, so steps <= launches <
+    steps + HOP_READ_EVERY."""
+    from pgvector_tpu_torch.index.hnsw_kernels import HOP_READ_EVERY
+
+    steps, launched = idx._last_scan_steps, idx._last_scan_launches
+    check(steps <= launched < steps + HOP_READ_EVERY,
+          f"{launched} layer-0 launches for {steps} steps (a read every "
+          f"{HOP_READ_EVERY} hops)")
+    return launched
+
+
+def keep_state(a, kw):
+    """A kernel call's arguments, copied (tensors under 2^24 elements:
+    the slabs and tables stay shared), without its output buffers."""
+    import torch
+
+    def cl(t):
+        return t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24 \
+            else t
+    return [cl(t) for t in a], {n: cl(v) for n, v in kw.items()
+                                if n != "out"}
+
+
+def k2_work(a, kw):
+    """What the K2 hop at a captured state (``a``, ``kw``) must move and
+    compute: the slabs of the elements it expands (whole, as the kernel
+    copies them; ``slabs`` a query each, ``unique_slabs`` the distinct
+    elements among them), the candidates it scores, and the least time:
+    the pool read and written, the done flags and hop counts, the expanded
+    elements' lists, the queries (an int8 slab: the quantized ones, their
+    steps and norms, and each candidate's norm) and each distinct slab
+    read once."""
+    import torch
+
+    from pgvector_tpu_torch.ops.gather_hop import select_expand
+    from pgvector_tpu_torch.ops.packed_hop import hop_candidates
+
+    pool_d, pool_p, nbr0, vals, qs, ef, expand = a[:7]
+    int8 = a[8] if len(a) > 8 else None
+    q, m2, dim = pool_d.shape[0], nbr0.shape[1], vals.shape[2]
+    pp, sel, _ = select_expand(pool_d, pool_p, ef, min(expand, ef))
+    if kw.get("done") is not None:
+        sel = torch.where(kw["done"][:, None], -1, sel)
+    live = sel[sel >= 0].long()
+    cands = int((hop_candidates(sel, nbr0, pp) >= 0).sum())
+    query = (q * dim + 8 * q + 4 * cands if int8 is not None
+             else 4 * q * dim)
+    unique = int(torch.unique(live).numel())
+    slab = m2 * dim * vals.element_size()
+    b, by = bound_ms(16 * q * ef + 10 * q + 4 * m2 * unique + query
+                     + unique * slab, 2.0 * cands * dim,
+                     INT8_OPS if int8 is not None else F32_FLOPS)
+    return {"queries": q, "expand": expand, "slabs": live.numel(),
+            "unique_slabs": unique, "slab_bytes": live.numel() * slab,
+            "scored": cands, "bound_ms": b, "bound_by": by, "live": live}
+
+
+def same_hop(out1, out0, what, atol=None):
+    """Two whole K2 hops agree: the pools apart from ties (distances within
+    torch_parity's tolerance, or ``atol`` per entry), the done flags, the
+    count of queries not done and the hop counts exactly.  Returns the
+    largest distance error."""
+    import numpy as np
+    import torch
+
+    from torch_parity import assert_same_pool
+
+    d1, p1, done1, left1, hops1 = out1
+    d0, p0, done0, left0, hops0 = out0
+    torch.cuda.synchronize()
+    check(torch.equal(done1, done0) and torch.equal(left1, left0)
+          and torch.equal(hops1, hops0),
+          f"{what}: done flags, the count not done and hop counts equal")
+    d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
+    if atol is None:
+        assert_same_pool(d0, p0, d1, p1)
+    else:
+        assert_same_pool(d0, p0, d1, p1, atol=atol, rtol=0.0)
+    fin = np.isfinite(d0)
+    return float(np.abs(d1[fin] - d0[fin]).max()) if fin.any() else 0.0
+
+
 def cuda_ms(fn, reps=3):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
     warm-up, timed with CUDA events."""
@@ -154,9 +239,13 @@ def profile_search(idx, qs, k, ef, top=8):
                if e.device_type == DeviceType.CUDA]
     kernel_s = sum(ms for _, ms, _ in kernels) / 1e3
     kernels.sort(key=lambda x: -x[1])
-    return {"phase": "profile", "ef": ef, "wall_s": wall,
-            "kernel_s": kernel_s, "busy_share": kernel_s / wall,
-            "kernel_launches": sum(c for _, _, c in kernels),
+    launches = sum(c for _, _, c in kernels)
+    hops = idx._last_scan_launches
+    return {"phase": "profile", "ef": ef, "queries": len(qs),
+            "wall_s": wall, "kernel_s": kernel_s,
+            "busy_share": kernel_s / wall, "kernel_launches": launches,
+            "layer0_launches": hops, "layer0_steps": idx._last_scan_steps,
+            "kernels_per_hop": launches / max(hops, 1),
             "top_ms": [[name[:72], ms, c] for name, ms, c in kernels[:top]]}
 
 
@@ -444,12 +533,12 @@ def live_phase(idx, table, qs, k, recall4, smi, churn=5_000):
     flat = FlatIndex(table, Metric.L2, tile=16384)
     query_beam, build_beam = idx.beam_expand, 4
     fused_topk.launches = packed_hop.launches = hop_tail.launches = 0
-    plain_hops = 0  # layer-0 hops of every plain search: each is one K2
+    plain_hops = 0  # layer-0 hops every plain search launched: one K2 each
 
     def plain(q, ef, fmask=None, kk=k):
         nonlocal plain_hops
         out = idx.search(q, kk, ef_search=ef, filter_mask=fmask)
-        plain_hops += idx._last_scan_steps
+        plain_hops += scan_launches(idx)
         return out
 
     def recall_of(r, gt):
@@ -1282,10 +1371,11 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     from pgvector_tpu_torch.index.hnsw import auto_packed_dtype
     from pgvector_tpu_torch.ops import distance as D
     from pgvector_tpu_torch.ops.fused_topk import fused_topk, l2_root_bound
+    from pgvector_tpu_torch.ops.gather_hop import hop_buffers
     from pgvector_tpu_torch.ops.packed_hop import (
         int8_l1_bound, packed_hop, packed_hop_plain)
     from pgvector_tpu_torch.utils.telemetry import timers
-    from torch_parity import assert_same_pool, assert_same_topk
+    from torch_parity import assert_same_topk
 
     dim, env = 960, "PGVECTOR_TPU_PACKED_SCAN"
     t_phase = time.perf_counter()
@@ -1298,6 +1388,7 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     # the counts go to 0 here: what follows is this phase's main path
     fused_topk.launches = packed_hop.launches = 0
     packed_hop.launches_by_slab = dict.fromkeys(packed_hop.launches_by_slab, 0)
+    packed_hop.launches_by_path = dict.fromkeys(packed_hop.launches_by_path, 0)
     flat = FlatIndex(table, Metric.L2)
     t0 = time.perf_counter()
     gt_d, gt = flat.search(gqs, k)
@@ -1343,13 +1434,11 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     floors = {40: 0.94, 100: 0.985}  # the reference: 0.9759 and 0.9981
     states, calls = {}, []
 
-    def record(*a):
+    def record(*a, **kw):
         if len(calls) in (0, 4, 12):
-            states[len(calls)] = [
-                t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
-                else t for t in a]
+            states[len(calls)] = keep_state(a, kw)
         calls.append(1)
-        return packed_hop(*a)
+        return packed_hop(*a, **kw)
 
     tiers = {}
     try:
@@ -1360,11 +1449,11 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
             for ef in (40, 100):
                 idx.search(gqs, k, ef_search=ef)  # warm-up: builds the slab
                 torch.cuda.synchronize()
-                hops += idx._last_scan_steps
+                hops += scan_launches(idx)
                 t0 = time.perf_counter()
                 dist, r = idx.search(gqs, k, ef_search=ef)
                 dt = time.perf_counter() - t0
-                hops += idx._last_scan_steps
+                hops += scan_launches(idx)
                 check(r.shape == (nq, k) and np.isfinite(dist).all(),
                       f"finite {tier} results of shape {(nq, k)}")
                 rec = sum(len(set(a.tolist()) & set(b.tolist()))
@@ -1406,69 +1495,67 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     def with_rows(st, rows, metric, qs):
         """A captured state cut to its first ``rows`` queries, scored
         under ``metric`` against ``qs`` (quantized anew)."""
-        pool_d, pool_p, sel, nbr0, vals, _, ef, _, (_, _, _, pn, sc) = st
-        e_sel = sel.numel() // len(pool_d)
+        (pool_d, pool_p, nbr0, vals, _, ef, e_sel, _,
+         (_, _, _, pn, sc)), kw = st
         qs = qs[:rows].contiguous()
         qc, sq, q2 = D.int8_query(qs, sc)
-        return [pool_d[:rows], pool_p[:rows], sel[:rows * e_sel], nbr0, vals,
-                qs, ef, metric, (qc, sq, q2, pn, sc)]
+        return ([pool_d[:rows], pool_p[:rows], nbr0, vals, qs, ef, e_sel,
+                 metric, (qc, sq, q2, pn, sc)],
+                {n: v[:rows] for n, v in kw.items()})
 
     count = dict(packed_hop.launches_by_slab)  # checks below do not count
+    paths = dict(packed_hop.launches_by_path)
     cases = []
-    for hop, st in sorted(states.items()):
-        d1, p1 = packed_hop(*st)
-        d0, p0 = packed_hop_plain(*st)
+    for hop, (a, kw) in sorted(states.items()):
+        out1, out0 = packed_hop(*a, **kw), packed_hop_plain(*a, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(d1, d0) and torch.equal(p1, p0),
+        check(all(torch.equal(x, y) for x, y in zip(out1, out0)),
               f"K2-int8 equals its plain version (L2, hop {hop})")
-        cases.append({"hop": hop, "metric": "L2", "queries": len(st[5]),
+        cases.append({"hop": hop, "metric": "L2", "queries": len(a[4]),
                       "equal": True, "max_abs_err": 0.0})
-    st = states[4]
-    qn = st[5] / torch.clamp(st[5].norm(dim=1, keepdim=True), min=1e-30)
-    for metric, q_use in ((Metric.IP, qn), (Metric.L1, st[5])):
-        s2 = with_rows(st, 2000, metric, q_use)
-        d1, p1 = packed_hop(*s2)
-        d0, p0 = packed_hop_plain(*s2)
+    a, kw = states[4]
+    qn = a[4] / torch.clamp(a[4].norm(dim=1, keepdim=True), min=1e-30)
+    for metric, q_use in ((Metric.IP, qn), (Metric.L1, a[4])):
+        a2, kw2 = with_rows(states[4], 2000, metric, q_use)
+        out1, out0 = packed_hop(*a2, **kw2), packed_hop_plain(*a2, **kw2)
         torch.cuda.synchronize()
-        fin = torch.isfinite(d0)
-        err = float((d1 - d0)[fin].abs().max())
+        fin = torch.isfinite(out0[0])
+        err = float((out1[0] - out0[0])[fin].abs().max())
         if metric is Metric.IP:
-            check(torch.equal(d1, d0) and torch.equal(p1, p0),
+            check(all(torch.equal(x, y) for x, y in zip(out1, out0)),
                   "K2-int8 equals its plain version (IP, normalized queries)")
             tol = 0.0
         else:
-            bound = int8_l1_bound(d0, dim)
-            assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu(),
-                             atol=bound.cpu().numpy(), rtol=0.0)
+            bound = int8_l1_bound(out0[0], dim)
+            same_hop(out1, out0, "K2-int8 L1", atol=bound.cpu().numpy())
             tol = float(bound[fin].max())
-        cases.append({"hop": 4, "metric": metric.name, "queries": len(s2[5]),
+        cases.append({"hop": 4, "metric": metric.name, "queries": len(a2[4]),
                       "equal": metric is Metric.IP, "max_abs_err": err,
                       "tolerance_max": tol})
     # timed at the main path's shapes: ef 100, hop 4 (Q = 8,000, E = 8)
-    pool_d, _, sel, nbr0, vals, qs_p, ef = st[:7]
-    q_rows, m2 = len(qs_p), nbr0.shape[1]
-    live = sel[sel >= 0].long()
-    cands = int((nbr0[live] >= 0).sum())
-    k2_bound, k2_by = bound_ms(
-        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
-        + (dim + 4) * cands + (dim + 8) * q_rows,
-        2.0 * cands * dim, INT8_OPS)
-    k2_ms = cuda_ms(lambda: packed_hop(*st), reps=10)
-    k2_kernel_ms, k2_events = kernel_only_ms(lambda: packed_hop(*st), reps=20)
-    k2_plain = cuda_ms(lambda: packed_hop_plain(*st), reps=3)
-    packed_hop.launches_by_slab = count
+    wk = k2_work(a, kw)
+    live = wk.pop("live")
+    ef, q_rows = a[5], wk["queries"]
+    bufs = hop_buffers(q_rows, ef, dev)
+    k2_ms = cuda_ms(lambda: packed_hop(*a, **kw, out=bufs), reps=10)
+    k2_kernel_ms, k2_events = kernel_only_ms(
+        lambda: packed_hop(*a, **kw, out=bufs), reps=20)
+    k2_plain = cuda_ms(lambda: packed_hop_plain(*a, **kw), reps=3)
     del states
-    # the bf16 slab's kernel at the same hop, for comparison: the same
-    # selections over a bf16 slab of this graph
+    # the bf16 slab's kernel at the same hop: the same pools over a bf16
+    # slab of this graph, held against its plain version and timed
     idx._drop_packed()
     b16 = idx._ensure_nbr_vals(torch.bfloat16)
-    st_b = [*st[:4], b16, qs_p, ef, Metric.L2]
-    bf16_ms = cuda_ms(lambda: packed_hop(*st_b), reps=10)
-    bf16_kernel_ms, _ = kernel_only_ms(lambda: packed_hop(*st_b), reps=20)
-    bf16_bound, _ = bound_ms(
-        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
-        + 2 * dim * cands + 4 * dim * q_rows, 2.0 * cands * dim)
+    a_b = [*a[:3], b16, a[4], ef, a[6], Metric.L2]
+    bf16_err = same_hop(packed_hop(*a_b, **kw), packed_hop_plain(*a_b, **kw),
+                        "K2 on the 960-d bf16 slab")
+    wk_b = k2_work(a_b, kw)
+    wk_b.pop("live")
+    bf16_ms = cuda_ms(lambda: packed_hop(*a_b, **kw, out=bufs), reps=10)
+    bf16_kernel_ms, _ = kernel_only_ms(
+        lambda: packed_hop(*a_b, **kw, out=bufs), reps=20)
     packed_hop.launches_by_slab = count
+    packed_hop.launches_by_path = paths
     total = torch.cuda.get_device_properties(dev).total_memory
     pick_1m = auto_packed_dtype(1_000_000, 16, dim, Metric.L2, total)
     check(pick_1m == torch.int8, f"auto picks int8 at 1M x {dim}, not {pick_1m}")
@@ -1479,22 +1566,18 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
           "build_phases": build_phases, "auto_plan_200k": "bfloat16",
           "tiers": tiers, "launches": launches,
           "k2_int8_vs_plain": cases,
-          "k2_int8_timed": {"ef": ef, "hop": 4, "queries": q_rows,
-                            "expand": sel.numel() // q_rows,
-                            "live_candidates": cands, "ms": k2_ms,
-                            "kernel_only_ms": k2_kernel_ms,
-                            "kernel_events": k2_events,
-                            "plain_ms": k2_plain, "bound_ms": k2_bound,
-                            "bound_by": k2_by,
-                            "bf16_slab_ms": bf16_ms,
-                            "bf16_slab_kernel_only_ms": bf16_kernel_ms,
-                            "bf16_slab_bound_ms": bf16_bound},
+          "k2_int8_timed": dict(wk, ef=ef, hop=4, ms=k2_ms,
+                                kernel_only_ms=k2_kernel_ms,
+                                kernel_events=k2_events, plain_ms=k2_plain),
+          "k2_bf16_slab": dict(wk_b, ef=ef, hop=4, max_abs_err=bf16_err,
+                               ms=bf16_ms, kernel_only_ms=bf16_kernel_ms),
+          "launches_by_path": paths,
           "auto_plan_1m": {"rows": 1_000_000, "dim": dim, "m": 16,
                            "total_memory": total,
                            "pick": str(pick_1m).replace("torch.", "")},
           "seconds": time.perf_counter() - t_phase})
     idx._drop_packed()
-    del idx, table, flat, st, st_b, b16
+    del idx, table, flat, a, kw, a_b, b16, bufs
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": "packed_hop_int8", "route": "cuda",
@@ -1505,7 +1588,8 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
             "launches": tiers["int8"]["launches"], "on_main_path": True,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": k2_ms, "kernel_only_ms": k2_kernel_ms,
-            "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+            "plain_ms": k2_plain, "bound_ms": wk["bound_ms"],
+            "bound_by": wk["bound_by"],
             "library_ms": None, "cases": cases}
 
 
@@ -1709,7 +1793,7 @@ def mesh_phase(db, qs, smi, dev, k=10, n_hnsw=200_000, n_build=50_000,
         shh.search(qs[:100], k, ef_search=ef)  # warm-up: the slabs
         k2 = packed_hop.launches
         (_, rs), dt = timed(lambda: shh.search(qs, k, ef_search=ef))
-        hops = sum(s._last_scan_steps for s in shh.shards)
+        hops = sum(scan_launches(s) for s in shh.shards)
         check(packed_hop.launches - k2 == hops,
               f"K2 once a layer-0 hop of every shard: "
               f"{packed_hop.launches - k2} launches for {hops} hops")
@@ -1799,7 +1883,7 @@ class BuildKernels:
     (one a hop, from ``search_layer``), the others ``_hop_body`` calls
     without the packed cache.  ``capture(kind, args)``, where set, sees
     each select's inputs ("select"), each beam's start ("beam") and each
-    K6 call's inputs ("hop")."""
+    K6 call's inputs and keywords ("hop", an (args, kwargs) pair)."""
 
     def __init__(self):
         from pgvector_tpu_torch.index import hnsw_kernels as K
@@ -1833,7 +1917,7 @@ class BuildKernels:
             self.calls["row_gather_hops"] += 1
             self.calls["dense_hops"] += 1
             if self.capture:
-                self.capture("hop", a)
+                self.capture("hop", (a, kw))
             return k6(*a, **kw)
 
         K.select_neighbors, K._hop_body = counted_sel, counted_hop
@@ -1960,20 +2044,20 @@ def select_vs_plain(idx, captured, dev, efc=1000, rows=256):
 
 def gather_hop_vs_plain(captured):
     """K6 against its plain version on the beam hops captured from a build
-    wave (``captured``: (beam, hop) -> inputs; the last beam is level 0),
-    each the whole hop: ids apart from ties, distances within
-    torch_parity's ATOL / RTOL (K2's f32 card test), the done flags and
-    the count of queries not done equal.  Level 0's hop 4 timed (CUDA
-    events, and the kernel alone by torch.profiler) beside its plain
-    version and its bound: the pool read and written, the expanded
-    elements' lists (and slots above level 0), the queries, each row the
-    hop must score (distinct, not in the pool) read once, the done flags
-    written; beside it torch.index_select of those rows alone (the
-    library's rate for the same random rows, read and written)."""
+    wave (``captured``: (beam, hop) -> (args, kwargs); the last beam is
+    level 0), each the whole hop from the beam's state: ids apart from
+    ties, distances within torch_parity's ATOL / RTOL (K2's f32 card
+    test), the done flags, the count of queries not done and the hop
+    counts equal.  Level 0's hop 4 timed (CUDA events, and the kernel
+    alone by torch.profiler) beside its plain version and its bound: the
+    pool read and written, the expanded elements' lists (and slots above
+    level 0), the queries, each row the hop must score (distinct, not in
+    the pool) read once, the done flags and hop counts read and written;
+    beside it torch.index_select of those rows alone (the library's rate
+    for the same random rows, read and written)."""
     import numpy as np
     import torch
 
-    from torch_parity import assert_same_pool
     from pgvector_tpu_torch.ops.gather_hop import (
         dedupe_hop, gather_hop, gather_hop_plain, hop_buffers, hop_lists,
         select_expand)
@@ -1981,20 +2065,12 @@ def gather_hop_vs_plain(captured):
     check(captured, "captured the build's hops")
     level0 = max(b for b, _ in captured)
     out = []
-    for (beam, hop), st in sorted(captured.items()):
-        d1, p1, done1, left1 = gather_hop(*st)
-        d0, p0, done0, left0 = gather_hop_plain(*st)
-        torch.cuda.synchronize()
-        check(torch.equal(done1, done0) and torch.equal(left1, left0),
-              f"K6's done flags at beam {beam}, hop {hop}")
-        d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
-        assert_same_pool(d0, p0, d1, p1)
-        fin = np.isfinite(d0)
+    for (beam, hop), (st, kw) in sorted(captured.items()):
+        out1 = gather_hop(*st, **kw)
+        err = same_hop(out1, gather_hop_plain(*st, **kw),
+                       f"K6 at beam {beam}, hop {hop}")
         row = {"beam": beam, "level0": beam == level0, "hop": hop,
-               "not_done": int(left1),
-               "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max())
-               if fin.any() else 0.0,
-               "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())}
+               "not_done": int(out1[3]), "max_abs_err": err}
         if beam == level0 and hop == 4:
             pool_d, pool_p, nbr0, nbr_up, up_slot, level, rows, qs, ef, \
                 expand = st[:10]
@@ -2013,7 +2089,7 @@ def gather_hop_vs_plain(captured):
             lists = int((sel >= 0).sum()) * (
                 nbr0.shape[1] if level == 0 else nbr_up.shape[2] + 1)
             dim = rows.shape[1]
-            b, by = bound_ms(16 * q * ef + 4 * lists + q
+            b, by = bound_ms(16 * q * ef + 4 * lists + 10 * q
                              + qs.element_size() * qs.numel()
                              + rows.element_size() * dim * scored,
                              2.0 * dim * scored)
@@ -2022,10 +2098,11 @@ def gather_hop_vs_plain(captured):
             bufs = hop_buffers(q, ef, pool_d.device)
             row.update(timed=True, queries=q, expand=expand,
                        width=nbr0.shape[1], scored=scored,
-                       ms=cuda_ms(lambda: gather_hop(*st, out=bufs)),
+                       ms=cuda_ms(lambda: gather_hop(*st, **kw, out=bufs)),
                        kernel_only_ms=kernel_only_ms(
-                           lambda: gather_hop(*st, out=bufs))[0],
-                       plain_ms=cuda_ms(lambda: gather_hop_plain(*st)),
+                           lambda: gather_hop(*st, **kw, out=bufs))[0],
+                       plain_ms=cuda_ms(
+                           lambda: gather_hop_plain(*st, **kw)),
                        bound_ms=b, bound_by=by,
                        index_select_ms=kernel_only_ms(
                            lambda: torch.index_select(rows, 0, ids,
@@ -2142,7 +2219,7 @@ def relation_phase(rel, qs, k, floors, ivf_floor, smi):
 
         def counted(*a, **kw):
             r = search(*a, **kw)
-            hops[0] += index._last_scan_steps
+            hops[0] += scan_launches(index)
             return r
         index.search = counted
 
@@ -2534,6 +2611,7 @@ def main():
         l2_root_bound)
     from pgvector_tpu_torch.index import hnsw_kernels
     from pgvector_tpu_torch.ops.hop_tail import hop_tail, hop_tail_plain
+    from pgvector_tpu_torch.ops.gather_hop import hop_buffers
     from pgvector_tpu_torch.ops.packed_hop import packed_hop, packed_hop_plain
     from pgvector_tpu_torch.ops.select_neighbors import Gram
     from pgvector_tpu_torch.utils.telemetry import timers
@@ -2670,6 +2748,7 @@ def main():
     fused_topk.launches = 0
     packed_hop.launches = 0
     packed_hop.launches_by_slab = dict.fromkeys(packed_hop.launches_by_slab, 0)
+    packed_hop.launches_by_path = dict.fromkeys(packed_hop.launches_by_path, 0)
     hop_tail.launches = 0
     torch.cuda.reset_peak_memory_stats()
     k = 10
@@ -2723,9 +2802,7 @@ def main():
             cap4["hop"] = 0
         else:  # hops 0, 4 and 12 of every beam; level 0's is the last
             if cap4["hop"] in (0, 4, 12):
-                cap4["hops"][(cap4["beam"], cap4["hop"])] = [
-                    t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
-                    else t for t in a]
+                cap4["hops"][(cap4["beam"], cap4["hop"])] = keep_state(*a)
             cap4["hop"] += 1
 
     bk.capture = capture
@@ -2754,11 +2831,11 @@ def main():
     for ef in (40, 100):
         idx.search(qs, k, ef_search=ef)  # warm-up: builds the slab cache
         torch.cuda.synchronize()
-        hops += idx._last_scan_steps
+        hops += scan_launches(idx)
         t0 = time.perf_counter()
         dist, r = idx.search(qs, k, ef_search=ef)
         dt = time.perf_counter() - t0
-        hops += idx._last_scan_steps
+        hops += scan_launches(idx)
         check(r.shape == (len(qs), k) and np.isfinite(dist).all(),
               f"finite results of shape {(len(qs), k)}, got {r.shape}")
         hits = sum(len(set(a.tolist()) & set(b.tolist()))
@@ -2771,10 +2848,14 @@ def main():
               f"at ef={ef}")
     launches = {"fused_topk": fused_topk.launches,
                 "packed_hop": packed_hop.launches,
+                "packed_hop_by_path": dict(packed_hop.launches_by_path),
                 "hop_tail": hop_tail.launches}
     check(launches["packed_hop"] == hops,
           f"every layer-0 hop went through K2: {launches['packed_hop']} "
           f"launches for {hops} hops")
+    check(launches["packed_hop_by_path"]["bulk"] == hops,
+          f"every K2 launch copied its slabs in bulk: "
+          f"{launches['packed_hop_by_path']}")
     bk.read("4")  # the searches ran no select and no row-gather hop
     check(bk.k3.launches == build4["select_neighbors"]
           and bk.k6.launches == build4["gather_hop"],
@@ -2798,17 +2879,17 @@ def main():
           "launches": launches, "layer0_hops": hops})
 
     # ---- 5. K2 against its plain version on hop states of the 1M graph ---
-    # the inputs of hops 0, 4 and 12 of one search at ef 40 and at ef 100
+    # the inputs of hops 0, 4 and 12 of one search at ef 40 and at ef 100,
+    # each the whole hop from the pool and the search's done flags and hop
+    # counts so far
     states = {}
     calls = []
 
-    def record(*a):
+    def record(*a, **kw):
         if len(calls) in (0, 4, 12):
-            states[(ef, len(calls))] = [
-                t.clone() if torch.is_tensor(t) and t.numel() < 1 << 24
-                else t for t in a]
+            states[(ef, len(calls))] = keep_state(a, kw)
         calls.append(1)
-        return packed_hop(*a)
+        return packed_hop(*a, **kw)
 
     hnsw_kernels.packed_hop = record
     try:
@@ -2819,34 +2900,36 @@ def main():
         hnsw_kernels.packed_hop = packed_hop
     check(len(states) == 6, f"captured hops {sorted(states)}")
     k2 = []
-    for (ef, hop), st in sorted(states.items()):
-        d1, p1 = packed_hop(*st)
-        d0, p0 = packed_hop_plain(*st)
-        torch.cuda.synchronize()
-        d0, p0, d1, p1 = (t.cpu().numpy() for t in (d0, p0, d1, p1))
-        assert_same_pool(d0, p0, d1, p1)
-        fin = np.isfinite(d0)
-        k2.append({"ef": ef, "hop": hop,
-                   "max_abs_err": float(np.abs(d1[fin] - d0[fin]).max()),
-                   "ids_equal_frac": float(((p0 >> 1) == (p1 >> 1)).mean())})
-    # timed at the main path's shapes: ef 100, hop 4 (Q = 8,000, E = 8)
-    st = states[(100, 4)]
-    pool_d, _, sel, nbr0, vals, qs_p, ef = st[:7]
-    q_rows, m2, dim = len(qs_p), nbr0.shape[1], vals.shape[2]
-    live = sel[sel >= 0].long()
-    cands = int((nbr0[live] >= 0).sum())
-    k2_bound, k2_by = bound_ms(
-        16 * q_rows * ef + 4 * sel.numel() + 4 * m2 * live.numel()
-        + vals.element_size() * dim * cands + 4 * q_rows * dim,
-        2.0 * cands * dim)
-    k2_ms = cuda_ms(lambda: packed_hop(*st))
-    k2_plain = cuda_ms(lambda: packed_hop_plain(*st))
-    emit({"phase": "packed_hop_vs_plain", "queries": q_rows,
-          "expand": sel.numel() // q_rows, "slab": str(vals.dtype),
-          "atol": ATOL, "rtol": RTOL, "cases": k2,
-          "timed": {"ef": ef, "hop": 4, "live_candidates": cands,
-                    "ms": k2_ms, "plain_ms": k2_plain,
-                    "bound_ms": k2_bound, "bound_by": k2_by}})
+    for (ef, hop), (a, kw) in sorted(states.items()):
+        err = same_hop(packed_hop(*a, **kw), packed_hop_plain(*a, **kw),
+                       f"K2 at ef {ef}, hop {hop}")
+        k2.append({"ef": ef, "hop": hop, "max_abs_err": err})
+    # timed at the main path's shapes, hop 4 of ef 40 and of ef 100 (Q =
+    # 8,000, E = 8): the kernel through output buffers made once, as a
+    # search makes them, alone by torch.profiler, beside its plain version
+    # and torch.index_select of the same slabs (the library's rate for
+    # them, read and written)
+    k2_timed = {}
+    for ef in (40, 100):
+        a, kw = states[(ef, 4)]
+        wk = k2_work(a, kw)
+        live = wk.pop("live")
+        bufs = hop_buffers(wk["queries"], ef, dev)
+        slabs = a[3].view(a[3].shape[0], -1)
+        gathered = torch.empty((len(live), slabs.shape[1]),
+                               dtype=slabs.dtype, device=dev)
+        k2_timed[ef] = dict(
+            wk, ef=ef, hop=4, slab=str(a[3].dtype),
+            ms=cuda_ms(lambda: packed_hop(*a, **kw, out=bufs)),
+            kernel_only_ms=kernel_only_ms(
+                lambda: packed_hop(*a, **kw, out=bufs))[0],
+            plain_ms=cuda_ms(lambda: packed_hop_plain(*a, **kw)),
+            index_select_ms=kernel_only_ms(
+                lambda: torch.index_select(slabs, 0, live, out=gathered))[0])
+    main_k2 = k2_timed[100]
+    emit({"phase": "packed_hop_vs_plain", "atol": ATOL, "rtol": RTOL,
+          "cases": k2, "timed": list(k2_timed.values()),
+          "launches_by_path": dict(packed_hop.launches_by_path)})
     w_tail = 256
     tail_bound, tail_by = bound_ms(8 * q2 * (2 * 100 + w_tail))
 
@@ -2890,7 +2973,8 @@ def main():
     # free phase 4's index with its slab cache (the captured hop states
     # hold it too), phase 10's indexes and the churned table first
     idx._nbr_vals = None
-    del rel, idx, table, flat, data, sq, qs_dev, states, st, pd, pi, b, b_user
+    del rel, idx, table, flat, data, sq, qs_dev, states, a, kw, bufs, slabs
+    del gathered, pd, pi, b, b_user
     gc.collect()
     torch.cuda.empty_cache()
     bk.reset()
@@ -2934,16 +3018,24 @@ def main():
          "ms_at_library_queries": k1[4]["ms"]},
         {"name": "packed_hop", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
-         "replaces": "pgvector_tpu/ops/pallas_hop.py:154",
+         "replaces": "pgvector_tpu/ops/pallas_hop.py:154 (hop_tail, body "
+                     "_tail_kernel :98) and the packed _hop_body around it, "
+                     "pgvector_tpu/index/hnsw_kernels.py:401-501",
          "launches": launches["packed_hop"] + launches10["packed_hop"]
          + launches11["packed_hop"],
          "launches_by_phase": {"4": launches["packed_hop"],
                                "10": launches10["packed_hop"],
                                "11": launches11["packed_hop"]},
          "on_main_path": True,
+         "launches_by_path": launches["packed_hop_by_path"],
          "max_abs_err": max(c["max_abs_err"] for c in k2),
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "ms": main_k2["ms"], "kernel_only_ms": main_k2["kernel_only_ms"],
+         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
+         "bound_by": main_k2["bound_by"],
+         "library_ms": main_k2["index_select_ms"],
+         "library_call": "torch.index_select of the hop's slabs",
+         "timed_shape": {"ef": 100, "hop": 4,
+                         "queries": main_k2["queries"], "expand": 8}},
         {"name": "hop_tail", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/hop_tail.cu",
          "replaces": "pgvector_tpu/ops/pallas_hop.py:154",

@@ -18,9 +18,11 @@ Hopper (``csrc/``; built with ``nvcc`` at first use):
 
 - K1 :mod:`pgvector_tpu_torch.ops.fused_topk` — exact L2/IP top-k scan
   (3xTF32 on the tensor cores)
-- K2 :mod:`pgvector_tpu_torch.ops.packed_hop` — one HNSW beam-search hop
-  (neighbor ids, slab scores and the hop tail) over an f32, bf16 or
-  int8 slab (the int8 tier's scorer, ``__dp4a``); the tail alone is
+- K2 :mod:`pgvector_tpu_torch.ops.packed_hop` — one whole HNSW
+  beam-search hop (the E-selection, neighbor ids, dedupe, slab scores
+  over slabs brought in by TMA bulk copies, the merge, done and hop
+  counts) over an f32, bf16 or int8 slab (the int8 tier's scorer,
+  ``__dp4a``); the reference's tail alone is
   :mod:`pgvector_tpu_torch.ops.hop_tail`
 
 and two more for the bit type, whose popcounts the JAX package left to

@@ -32,14 +32,16 @@
 //      candidates are sorted and each lane's place in the merged order is
 //      counted by binary search (a pool out of order or with a NaN takes
 //      the whole sort).
-// Then the query's done flag, and the count of queries not done: each
+// Then the query's done flag, its hop count (one more, up to and including
+// the hop that found it done), and the count of queries not done: each
 // block adds its own to a two-int scratch, and the last block to finish
-// writes the total and resets the scratch for the next launch.  No (Q, W)
-// list, score or membership block reaches device memory.  The distances
-// are summed in another order than torch.sum's, so they agree with the
-// plain version's within f32 tolerance, and the ids apart from ties; the
-// selection, the lists and the masks are the plain version's exactly, and
-// given the same distances so is the merge.
+// writes the total and resets the scratch for the next launch.  A query
+// already done on entry (done_in) is copied through and counts no hop.
+// No (Q, W) list, score or membership block reaches device memory.  The
+// distances are summed in another order than torch.sum's, so they agree
+// with the plain version's within f32 tolerance, and the ids apart from
+// ties; the selection, the lists and the masks are the plain version's
+// exactly, and given the same distances so is the merge.
 //
 // What bounds it on an H100: the bytes it must move, the pool read and
 // written, the E lists of each query (and the slots above level 0), the
@@ -91,6 +93,9 @@ struct HopArgs {
   float* out_d;
   int* out_p;
   uint8_t* out_done;
+  const uint8_t* done_in;  // null: no query done yet
+  const int* hops_in;      // null: no hops yet
+  int* out_hops;           // null: not kept
   int* work;      // [count, ticket], zero between launches
   int* out_left;  // the queries not done
   int cap, m2, slots, levels, m, level, n_rows, q_type;
@@ -152,7 +157,17 @@ __global__ void __launch_bounds__(32 * WARPS)
   if (threadIdx.x == 0) blk_left = 0;
   __syncthreads();
 
-  if (row < a.q) {  // whole warps: no barrier until the count below
+  const bool was_done = row < a.q && a.done_in && a.done_in[row];
+  if (was_done) {  // copied through
+    for (int e = lane; e < a.ef; e += 32) {
+      a.out_d[(size_t)row * a.ef + e] = a.pool_d[(size_t)row * a.ef + e];
+      a.out_p[(size_t)row * a.ef + e] = a.pool_p[(size_t)row * a.ef + e];
+    }
+    if (lane == 0) {
+      a.out_done[row] = 1;
+      if (a.out_hops) a.out_hops[row] = a.hops_in ? a.hops_in[row] : 0;
+    }
+  } else if (row < a.q) {  // whole warps: no barrier until the count below
     const int ef = a.ef, width = a.width, w = a.w, e_sel = a.e_sel;
     const int cw = a.cw;
     unsigned char* p = smem + warp * warp_bytes(a.d, width, e_sel);
@@ -377,6 +392,7 @@ __global__ void __launch_bounds__(32 * WARPS)
     }
     if (lane == 0) {
       a.out_done[row] = done;
+      if (a.out_hops) a.out_hops[row] = (a.hops_in ? a.hops_in[row] : 0) + 1;
       if (!done) atomicAdd(&blk_left, 1);
     }
   }
@@ -433,9 +449,12 @@ cudaError_t with_width(const HopArgs& a, cudaStream_t st) {
 // nbr0 (cap, m2), nbr_up (slots, levels, m) and up_slot (cap,) int32;
 // rows (n_rows, d) and qs (q, d) of the dtypes coded 0 f32, 1 bf16, 2 f16
 // (dtype, q_type); e_sel <= ef the lanes expanded; metric: 0 L2, 1 inner
-// product (and cosine), 2 L1.  Writes the new (q, ef) pool, done (q,)
-// uint8 and the count of queries not done (out_left, one int); work is two
-// ints, zero before the first launch on a stream, and left at zero.
+// product (and cosine), 2 L1.  done_in (q,) uint8 and hops_in (q,) int32:
+// the previous hop's (null: none done, no hops).  Writes the new (q, ef)
+// pool, done (q,) uint8, out_hops (q,) int32 (null: not kept; they may be
+// done_in / hops_in themselves) and the count of queries not done
+// (out_left, one int); work is two ints, zero before the first launch on
+// a stream, and left at zero.
 extern "C" int pgvt_gather_hop(const float* pool_d, const int* pool_p,
                                const int* nbr0, int cap, int m2,
                                const int* nbr_up, const int* up_slot,
@@ -443,8 +462,10 @@ extern "C" int pgvt_gather_hop(const float* pool_d, const int* pool_p,
                                const void* rows, int n_rows, const void* qs,
                                int q, int ef, int e_sel, int d, int dtype,
                                int q_type, int metric, float* out_d,
-                               int* out_p, void* out_done, int* work,
-                               int* out_left, void* stream) {
+                               int* out_p, void* out_done,
+                               const void* done_in, const int* hops_in,
+                               int* out_hops, int* work, int* out_left,
+                               void* stream) {
   const int lw = level == 0 ? m2 : m;
   if (q < 1 || n_rows < 1 || ef < 1 || e_sel < 1 || e_sel > ef ||
       cap < 1 || m2 < 1 || d < 1 || level < 0 || level > levels ||
@@ -459,7 +480,9 @@ extern "C" int pgvt_gather_hop(const float* pool_d, const int* pool_p,
   const bool vec = (d * esize) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(rows) % 16 == 0;
   HopArgs a{pool_d, pool_p, nbr0, nbr_up, up_slot, rows, qs, out_d, out_p,
-            static_cast<uint8_t*>(out_done), work, out_left,
+            static_cast<uint8_t*>(out_done),
+            static_cast<const uint8_t*>(done_in), hops_in, out_hops, work,
+            out_left,
             cap, m2, slots, levels, m, level, n_rows, q_type,
             q, ef, e_sel, lw, w, d, width, pgvt::lane_group(vec, n, d),
             metric, WARPS, pgvt::sort_width(w)};

@@ -3,10 +3,11 @@
 // the value table, gathered by id): ops/distance.py's dense_point_scores
 // in f32 for UNROLL (K2) or more candidate rows at once.  A group of
 // `group` adjacent lanes reads one candidate's row with N-value loads (16
-// bytes where the rows are 16-byte aligned, else single values), the
-// query sits in shared memory in f32, and a shuffle tree sums the group's
-// partial sums.  bf16 and f16 values are widened to f32 exactly before
-// any arithmetic.
+// bytes where the rows are 16-byte aligned, else single values) from
+// device memory, or (K2's slab ring) 16-byte loads from shared memory;
+// the query sits in shared memory in f32, and a shuffle tree sums the
+// group's partial sums.  bf16 and f16 values are widened to f32 exactly
+// before any arithmetic.
 
 #pragma once
 
@@ -24,39 +25,32 @@ namespace pgvt {
 enum { L2 = 0, IP = 1, L1 = 2 };  // the wrappers' metric codes
 constexpr int UNROLL = 4;         // candidates a lane group has in flight
 
-// N consecutive row values from p, as f32
-template <typename T, int N>
-struct Load;
-
-template <>
-struct Load<float, 4> {
-  static __device__ __forceinline__ void get(const float* p, float* v) {
-    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void get(const __nv_bfloat16* p,
-                                             float* v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+// the 16 / sizeof(T) values of the 16 bytes u, as f32
+template <typename T>
+__device__ __forceinline__ void widen16(const uint4 u, float* v) {
+  if constexpr (std::is_same_v<T, float>) {
+    v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of an f32
       v[2 * i] = __uint_as_float(w[i] << 16);
       v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-  }
-};
-
-template <>
-struct Load<__half, 8> {
-  static __device__ __forceinline__ void get(const __half* p, float* v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
     const __half* h = reinterpret_cast<const __half*>(&u);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __half2float(h[i]);
+  }
+}
+
+// N consecutive row values from p, as f32
+template <typename T, int N>
+struct Load {  // 16 bytes
+  static_assert(N * sizeof(T) == 16, "16-byte loads");
+  static __device__ __forceinline__ void get(const T* p, float* v) {
+    widen16<T>(__ldg(reinterpret_cast<const uint4*>(p)), v);
   }
 };
 
@@ -77,8 +71,9 @@ struct Load<T, 1> {
 // the query s_q (d values, f32, shared memory): every lane of a group of
 // `group` lanes (gl its lane in the group) adds its share; on return every
 // lane of the group holds the sums, negated for the inner product.  Every
-// lane of the warp calls it with the same trip counts (shuffles).
-template <typename T, int N, int U = UNROLL>
+// lane of the warp calls it with the same trip counts (shuffles).  SMEM:
+// the rows lie in shared memory (N values are 16 bytes).
+template <typename T, int N, int U = UNROLL, bool SMEM = false>
 __device__ __forceinline__ void score_rows(const T* (&row)[U],
                                            bool (&live)[U],
                                            const float* s_q, int d,
@@ -90,11 +85,13 @@ __device__ __forceinline__ void score_rows(const T* (&row)[U],
     float v[U][N];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (live[u]) {
-        Load<T, N>::get(row[u] + e0, v[u]);
-      } else {
+      if (!live[u]) {
 #pragma unroll
         for (int i = 0; i < N; ++i) v[u][i] = 0.f;
+      } else if constexpr (SMEM) {
+        widen16<T>(*reinterpret_cast<const uint4*>(row[u] + e0), v[u]);
+      } else {
+        Load<T, N>::get(row[u] + e0, v[u]);
       }
     }
 #pragma unroll
@@ -118,20 +115,6 @@ __device__ __forceinline__ void score_rows(const T* (&row)[U],
       acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
     if (metric == IP) acc[u] = -acc[u];
   }
-}
-
-// f(std::integral_constant<int, R>()) with R the tail's lanes a thread at
-// this width
-template <typename F>
-cudaError_t with_lanes(int width, F&& f) {
-  switch (merge_lanes(width)) {
-    case 2: return f(std::integral_constant<int, 2>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 8: return f(std::integral_constant<int, 8>());
-    case 16: return f(std::integral_constant<int, 16>());
-    case 32: return f(std::integral_constant<int, 32>());
-  }
-  return cudaErrorInvalidValue;
 }
 
 // lanes per candidate: enough n-element 16-byte loads to cover a row of d,

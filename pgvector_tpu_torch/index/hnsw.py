@@ -286,6 +286,7 @@ class HNSWIndex:
         self._nbr_scale: Optional[torch.Tensor] = None
         self._nbr_norm2: Optional[torch.Tensor] = None
         self._last_scan_steps = 0
+        self._last_scan_launches = 0
         self._last_scan_rounds = 1
         #: elements the last vacuum freed and re-linked
         self.last_vacuum = {"deleted": 0, "repaired": 0}
@@ -1102,6 +1103,7 @@ class HNSWIndex:
         self._sync_device_meta()
         pdt = self._packed_plan()
         packed_vals = self._ensure_nbr_vals(pdt) if pdt is not None else None
+        stats = {}
         d, r, steps = K.query_search(
             self.kind, self.metric, self.values, self.nbr0, self.nbr_up,
             self._up_slot_dev, self._elem_rows_dev, self.table.valid, fmask,
@@ -1112,9 +1114,11 @@ class HNSWIndex:
             sdim=self._scorer_sdim(), vmode=K.visited_mode(),
             # a straggler cap on layer-0 hops (a recall trade; 0 = none)
             max_steps=int(os.environ.get("PGVECTOR_TPU_QUERY_MAX_STEPS",
-                                         "0") or 0))
-        #: layer-0 hop count of the last scan
+                                         "0") or 0), stats=stats)
+        #: layer-0 hop count of the last scan (the reference's), and the
+        #: hops launched: the beam loop reads the device every few hops
         self._last_scan_steps = steps
+        self._last_scan_launches = stats["launches"]
         return stored_to_user(self.metric, d), r
 
     def _search_iterative(self, qs, k: int, ef: int, fmask, mode: str):

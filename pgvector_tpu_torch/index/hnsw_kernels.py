@@ -16,7 +16,9 @@ distance block plus a sequential keep/prune loop over the candidates.
 From JAX to PyTorch:
 
 - each ``lax.while_loop`` is a Python loop whose stop test reads one
-  device scalar per iteration (``.item()``);
+  device scalar: the beam loops every :data:`HOP_READ_EVERY` hops
+  (``.item()``; a hop after a query is done changes nothing for it), the
+  greedy walk every step;
 - ids stay int32 in every stored tensor and become int64 only to index;
   JAX clamps out-of-range gathers and drops out-of-range scatters, torch
   raises, so every index is clamped or masked before use;
@@ -32,12 +34,14 @@ own ``vmode``: the device-sharded HNSW search passes ``hash2``, the
 reference's default argument.  Iterative scans keep a ``hash2`` visited
 table and a discarded pool across resumes (:func:`query_search_first`,
 :func:`query_search_resume`) and, as in the reference, take the
-row-gather hop.  The packed query hop of a dense index is one kernel, K2
-(:func:`..ops.packed_hop.packed_hop`), when the visited set is ``off``
-(K2 takes no table, as the reference's Pallas tail); under ``hash1`` or
-``hash2`` the hop scores the same slabs in plain torch ops and probes the
-table before scoring.  The row-gather hop of a dense index (every build
-wave's beam) is, under the same condition, one K6 launch a hop
+row-gather hop.  The packed query hop of a dense index is one K2 launch
+(:func:`..ops.packed_hop.packed_hop`: the E-selection, the lists, the
+dedupe, the slab scores and the merge in one kernel, the pool kept packed
+from hop to hop) when the visited set is ``off`` (K2 takes no table, as
+the reference's Pallas tail); under ``hash1`` or ``hash2`` the hop scores
+the same slabs in plain torch ops and probes the table before scoring.
+The row-gather hop of a dense index (every build wave's beam) is, under
+the same condition, one K6 launch a hop
 (:func:`..ops.gather_hop.gather_hop`: the E-selection, the list reads and
 the merge in one kernel, the pool kept packed from hop to hop), and
 SelectNeighbors' keep/prune loop is K3
@@ -74,6 +78,11 @@ from ..ops.select_neighbors import Gram, form_pairs, select_neighbors
 from ..parallel.mesh import all_gather, shard_rows, to_device
 
 _MASK32 = 0xFFFFFFFF
+
+#: the beam loops read the device (is every query done) once every this
+#: many hops; the hops run past the last one that did work change nothing
+#: (measured on an H100: PERF.md, tools/hop_read_sweep.py)
+HOP_READ_EVERY = 4
 
 
 def _long(x: torch.Tensor) -> torch.Tensor:
@@ -320,15 +329,13 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     adjacency-packed neighbor values ``nbr_vals[cap, 2m, D]`` (f32, bf16
     or int8), the queries to score them against, the level-0 lists and,
     for an int8 slab, ``(qc, sq, q2, pnorm2, scale)`` (else None).  Each
-    expanded node's neighbor values are one contiguous slab.  With the
-    visited set ``off`` the neighbor ids, the slab scores and the merge
-    run in K2, which takes no visited set and no discarded pool (as the
-    reference's Pallas tail); otherwise the slabs are scored in torch ops
-    after the duplicate, pool and visited checks (the reference's packed
-    path outside its Pallas tail, hnsw_kernels.py:464-516).  Without
-    ``packed`` the candidates' rows are scored through ``score`` (a dense
-    index's hops with the visited set ``off`` and no discarded pool take
-    K6 instead, in :func:`search_layer`)."""
+    expanded node's neighbor values are one contiguous slab, scored in
+    torch ops after the duplicate, pool and visited checks (the
+    reference's packed path outside its Pallas tail,
+    hnsw_kernels.py:464-516).  Without ``packed`` the candidates' rows are
+    scored through ``score``.  With the visited set ``off`` and no
+    discarded pool, :func:`search_layer` runs a packed hop as one K2
+    launch and a dense index's row-gather hop as one K6 launch instead."""
     nq = pool_d.shape[0]
     expand = min(expand, pool_d.shape[1])
     cand_mask = (~pool_x) & (pool_i >= 0)
@@ -348,14 +355,6 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
     sel_elem = torch.where(ok, torch.gather(pool_i, 1, sel), -1)
     sel_flat = sel_elem.reshape(-1)
     if packed is not None:
-        nbr_vals, qs_p, nbr0, int8 = packed
-        if vmode == "off" and disc is None:
-            # neighbor ids, slab scores and the merge in one kernel (K2)
-            pool_packed = pool_i * 2 + pool_x.to(torch.int32)
-            d, pp = packed_hop(pool_d.contiguous(), pool_packed.contiguous(),
-                               sel_flat.contiguous(), nbr0, nbr_vals, qs_p,
-                               ef, metric, int8)
-            return d, pp >> 1, (pp & 1) == 1, visited, done
         return _packed_hop_visited(pool_d, pool_i, pool_x, sel_flat,
                                    packed, metric, visited, ef, disc, done,
                                    vmode)
@@ -380,11 +379,12 @@ def _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef: int,
 def _packed_hop_visited(pool_d, pool_i, pool_x, sel_flat, packed,
                         metric: Metric, visited, ef: int, disc, done,
                         vmode: str):
-    """The packed hop with a visited table: each selected element's slab
-    stays in adjacency order, so a repeated id is masked in place (a
-    strictly-lower-triangle compare) rather than sorted away; ids already
-    in the pool and ids the table has seen are masked too, then the slab
-    scores and the merge."""
+    """The packed hop in torch ops (with a visited table, or a
+    discarded pool): each selected element's slab stays in adjacency
+    order, so a repeated id is masked in place (a strictly-lower-triangle
+    compare) rather than sorted away; ids already in the pool and ids the
+    table has seen (``vmode`` ``hash1`` / ``hash2``) are masked too, then
+    the slab scores and the merge."""
     nbr_vals, qs_p, nbr0, int8 = packed
     nq = pool_d.shape[0]
     safe = _long(sel_flat)
@@ -399,8 +399,9 @@ def _packed_hop_visited(pool_d, pool_i, pool_x, sel_flat, packed,
         nbrs = torch.where(dup, -1, nbrs)
     in_pool = torch.any(nbrs[:, :, None] == pool_i[:, None, :], dim=2)
     nbrs = torch.where(in_pool, -1, nbrs)
-    visited, seen = visited_probe(visited, nbrs, vmode)
-    nbrs = torch.where(seen, -1, nbrs)
+    if vmode != "off":
+        visited, seen = visited_probe(visited, nbrs, vmode)
+        nbrs = torch.where(seen, -1, nbrs)
     if int8 is None:
         nd = dense_point_scores(metric, qs_p, v, nbrs)
     else:
@@ -464,27 +465,49 @@ def _pool_seed(init_d, init_i, visited, ef: int, vmode: str = "off"):
 def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
                  max_steps: int, expand: int = 1, packed=None, metric=None,
                  visited=None, disc=None, vmode: str = "off", rows=None,
-                 lists=None):
+                 lists=None, stats: Optional[dict] = None):
     """Algorithm 2 (HnswSearchLayer, hnswutils.c:822-985), batched.
     Returns (pool_d, pool_i, steps); with ``disc`` (a (disc_d, disc_i)
     pair), (pool_d, pool_i, visited, disc, steps, scanned), ``scanned``
-    each query's scored candidates.  One host read per hop decides whether
-    every query is done.  ``packed`` selects K2 (:func:`_hop_body`);
-    ``rows``, the (N, D) value table of a dense index, with ``lists``, the
-    level's tables ``(nbr0, nbr_up, up_slot, level)``, selects K6 when the
-    visited set is ``off`` and there is no discarded pool: each hop is one
-    :func:`..ops.gather_hop.gather_hop` call on the packed pool and one
-    read of its count of queries not done."""
-    if (rows is not None and lists is not None and packed is None
-            and disc is None and vmode == "off"):
-        return _gather_search(qs, init_d, init_i, ef, max_steps, expand,
-                              metric, rows, lists)
+    each query's scored candidates.  ``steps`` is the reference's: the
+    hops until every query was done, at most ``max_steps``.  One host
+    read every :data:`HOP_READ_EVERY` hops decides whether every query is
+    done, so up to HOP_READ_EVERY - 1 hops more than ``steps`` may run
+    (never past ``max_steps``); ``stats``, where given, receives the hops
+    run (``"launches"``) and ``"steps"``.  With the visited set ``off``
+    and no discarded pool, ``packed`` (see :func:`_hop_body`) selects K2,
+    one :func:`..ops.packed_hop.packed_hop` launch a hop, and ``rows``,
+    the (N, D) value table of a dense index, with ``lists``, the level's
+    tables ``(nbr0, nbr_up, up_slot, level)``, selects K6, one
+    :func:`..ops.gather_hop.gather_hop` launch a hop; both keep the pool
+    packed from hop to hop.  Otherwise each hop is :func:`_hop_body`."""
+    if disc is None and vmode == "off":
+        if packed is not None:
+            nbr_vals, qs_p, nbr0, int8 = packed
+            qs_p = qs_p.contiguous()
+
+            def hop(pool_d, pool_p, **kw):
+                return packed_hop(pool_d, pool_p, nbr0, nbr_vals, qs_p, ef,
+                                  expand, metric, int8, **kw)
+            return _kernel_search(hop, init_d, init_i, ef, max_steps, stats)
+        if rows is not None and lists is not None:
+            nbr0, nbr_up, up_slot, level = lists
+            qs_c = qs.contiguous()
+
+            def hop(pool_d, pool_p, **kw):
+                return gather_hop(pool_d, pool_p, nbr0, nbr_up, up_slot,
+                                  level, rows, qs_c, ef, expand, metric, **kw)
+            return _kernel_search(hop, init_d, init_i, ef, max_steps, stats)
     pool_d, pool_i, pool_x, visited = _pool_seed(init_d, init_i, visited,
                                                  ef, vmode)
-    scanned = (torch.zeros(pool_d.shape[0], dtype=torch.int32,
-                           device=pool_d.device) if disc is not None else None)
-    steps = 0
-    while steps < max_steps:
+    nq = pool_d.shape[0]
+    scanned = (torch.zeros(nq, dtype=torch.int32, device=pool_d.device)
+               if disc is not None else None)
+    hops = torch.zeros(nq, dtype=torch.int32, device=pool_d.device)
+    done = torch.zeros(nq, dtype=torch.bool, device=pool_d.device)
+    launched = 0
+    while launched < max_steps:
+        hops += (~done).to(torch.int32)  # up to the hop that finds it done
         out = _hop_body(score, neighbors_of, qs, pool_d, pool_i, pool_x, ef,
                         expand, packed=packed, metric=metric, visited=visited,
                         disc=disc, vmode=vmode)
@@ -493,37 +516,52 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
         else:
             pool_d, pool_i, pool_x, visited, disc, done, scored = out
             scanned += scored
-        steps += 1
-        if bool(done.all()):
+        launched += 1
+        if _read_due(launched, max_steps) and bool(done.all()):
             break
+    steps = _steps(hops, launched, stats)
     if disc is None:
         return pool_d, pool_i, steps
     return pool_d, pool_i, visited, disc, steps, scanned
 
 
-def _gather_search(qs, init_d, init_i, ef: int, max_steps: int, expand: int,
-                   metric, rows, lists):
-    """:func:`search_layer` on K6: the pool packed once, one
-    :func:`..ops.gather_hop.gather_hop` a hop (its count of queries not
-    done read on the host), unpacked once at the end."""
-    nbr0, nbr_up, up_slot, level = lists
+def _read_due(launched: int, max_steps: int) -> bool:
+    """Whether a beam loop reads the device after this hop: every
+    HOP_READ_EVERY hops, and not after the last."""
+    return launched % HOP_READ_EVERY == 0 and launched < max_steps
+
+
+def _steps(hops, launched: int, stats) -> int:
+    """The reference's hop count, the largest of the queries' (one host
+    read; with no query, the hops run), recorded in ``stats`` with the
+    hops run and each query's count."""
+    steps = int(hops.max()) if hops is not None and hops.numel() else launched
+    if stats is not None:
+        stats.update(launches=launched, steps=steps, hops=hops)
+    return steps
+
+
+def _kernel_search(hop, init_d, init_i, ef: int, max_steps: int, stats):
+    """:func:`search_layer` on K2 or K6 (``hop``, the kernel's wrapper
+    with all but the pool and the state bound): the pool packed once, one
+    launch a hop into two sets of buffers in turn, the count of queries
+    not done read every :data:`HOP_READ_EVERY` hops, the pool unpacked
+    once at the end."""
     pool_d, pool_i, _ = _init_pool(init_d, init_i, ef)
     pool_p = (pool_i * 2).contiguous()  # nothing expanded yet
-    qs = qs.contiguous()
-    # on the card the hops write into two sets of buffers in turn
     outs = [None, None]
     if pool_d.is_cuda:
         outs[0] = hop_buffers(pool_d.shape[0], ef, pool_d.device)
-        outs[1] = hop_buffers(pool_d.shape[0], ef, pool_d.device, outs[0][4])
-    steps = 0
-    while steps < max_steps:
-        pool_d, pool_p, _, left = gather_hop(
-            pool_d, pool_p, nbr0, nbr_up, up_slot, level, rows, qs, ef,
-            expand, metric, out=outs[steps % 2])
-        steps += 1
-        if int(left.item()) == 0:
+        outs[1] = hop_buffers(pool_d.shape[0], ef, pool_d.device, outs[0][5])
+    done = hops = None
+    launched = 0
+    while launched < max_steps:
+        pool_d, pool_p, done, left, hops = hop(
+            pool_d, pool_p, done=done, hops=hops, out=outs[launched % 2])
+        launched += 1
+        if _read_due(launched, max_steps) and int(left.item()) == 0:
             break
-    return pool_d, pool_p >> 1, steps
+    return pool_d, pool_p >> 1, _steps(hops, launched, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -1098,17 +1136,19 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
                  row_valid, fmask, qs, entry: int, entry_level: int, ef: int,
                  k: int, heaptids: int, expand: int = 1, packed_vals=None,
                  packed_scale=None, packed_norm2=None, rerank: bool = False,
-                 sdim: int = 0, vmode: str = "hash2", max_steps: int = 0
+                 sdim: int = 0, vmode: str = "hash2", max_steps: int = 0,
+                 stats: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Algorithm 5 (hnswscan.c:25-56): greedy descent through the upper
     levels, the ef beam at layer 0, then heap-TID expansion.
 
     ``packed_vals`` — optional adjacency-packed neighbor values
     (nbr_vals[cap, 2m, D], f32, bf16 or int8): layer 0 scores whole
-    neighbor slabs, and each hop after the selection runs in K2.  An int8
-    slab comes with its per-dim ``packed_scale`` (D,) and ``packed_norm2``
-    (each element's dequantized squared norm); the queries are quantized
-    against the scale once here (:func:`int8_query`), where the reference
+    neighbor slabs, each hop one K2 launch under the visited set ``off``.
+    An int8 slab comes with its per-dim ``packed_scale`` (D,) and
+    ``packed_norm2`` (each element's dequantized squared norm); the
+    queries are quantized against the scale once here
+    (:func:`int8_query`), where the reference
     quantizes them again each hop to the same values.  With ``rerank``
     the final pool is re-scored against the exact f32 values, so a bf16
     or int8 cache changes only pool admission, never the emitted order.
@@ -1116,9 +1156,10 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     reference's signature (a plain scan passes :func:`visited_mode`);
     ``max_steps`` caps the layer-0 hops (0: the 8·ef + 64 of Algorithm
     2's loop bound).
-    Returns (stored distances, row ids, layer-0 hops).  Only a dense index
-    has packed values (the reference packs dense rows only,
-    hnsw.py:1203); without them a dense index's layer-0 hops under the
+    Returns (stored distances, row ids, layer-0 hops); ``stats``, where
+    given, receives the layer-0 hops launched (:func:`search_layer`).
+    Only a dense index has packed values (the reference packs dense rows
+    only, hnsw.py:1203); without them a dense index's layer-0 hops under the
     visited set ``off`` run in K6."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
@@ -1142,7 +1183,7 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
         ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
         packed=packed, metric=metric, visited=visited, vmode=vmode,
         rows=values if kind == "dense" else None,
-        lists=(nbr0, nbr_up, up_slot, 0))
+        lists=(nbr0, nbr_up, up_slot, 0), stats=stats)
     if rerank:
         pool_d = score(qs, pool_i)  # exact f32 distances for the final pool
         pool_d, order = torch.sort(pool_d, dim=1, stable=True)

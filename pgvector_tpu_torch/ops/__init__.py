@@ -1,8 +1,8 @@
 """Tensor ops — dense distances, the tiled and grouped top-k engines and
 the CUDA kernels: K1
-(:mod:`.fused_topk`, exact scan), K2 (:mod:`.packed_hop`, one fused
-beam-search hop over the packed slabs, whose tail :mod:`.hop_tail` also
-offers alone), K3 (:mod:`.select_neighbors`, the build's SelectNeighbors),
+(:mod:`.fused_topk`, exact scan), K2 (:mod:`.packed_hop`, one whole
+beam-search hop over the packed slabs; the reference's tail alone is
+:mod:`.hop_tail`), K3 (:mod:`.select_neighbors`, the build's SelectNeighbors),
 K4 and K5 (:mod:`.bit_scan`) and K6 (:mod:`.gather_hop`, one fused hop
 over rows gathered by id)."""
 

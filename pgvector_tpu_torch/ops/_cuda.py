@@ -37,14 +37,12 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P],
     # pool_d, pool_p, cand_d, cand_i, q, ef, w, out_d, out_p, stream
     "pgvt_hop_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # pool_d, pool_p, sel, nbr0, nbr_vals, qs, q, ef, e_sel, m2, d, bf16,
-    # metric, out_d, out_p, stream
-    "pgvt_packed_hop": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P],
-    # pool_d, pool_p, sel, nbr0, nbr_vals, qc, sq, q2, pnorm2, scale, qs,
-    # q, ef, e_sel, m2, d, metric, out_d, out_p, stream
-    "pgvt_packed_hop_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pool_d, pool_p, nbr0, cap, m2, nbr_vals, slab, qs, qc, sq, q2,
+    # pnorm2, scale, done_in, hops_in, q, ef, e_sel, d, metric, out_d,
+    # out_p, out_done, out_hops, work, out_left, path (int*), stream
+    "pgvt_packed_hop": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
     # qs, db, pop, valid, nq, n, w, k, jaccard, splits, tiles_per_split,
     # part_d, part_i, out_d, out_i, stream
     "pgvt_bit_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -57,10 +55,11 @@ _SIGNATURES = {
                               _P],
     # pool_d, pool_p, nbr0, cap, m2, nbr_up, up_slot, slots, levels, m,
     # level, rows, n_rows, qs, q, ef, e_sel, d, dtype, q_type, metric,
-    # out_d, out_p, out_done, work, out_left, stream
+    # out_d, out_p, out_done, done_in, hops_in, out_hops, work, out_left,
+    # stream
     "pgvt_gather_hop": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I,
                         _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                        _P],
+                        _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -6,9 +6,11 @@ lists, the Knuth-keyed dedupe, the pool membership mask, the row scores
 and ``_hop_merge``) for dense values.
 
 One call takes the sorted ef pool, packed as (Q, ef) f32 distances and
-(Q, ef) int32 ``id·2 | expanded``, and the level's list tables, and
-returns the next packed pool, each query's ``done`` flag and the count of
-queries not done:
+(Q, ef) int32 ``id·2 | expanded``, the level's list tables and the
+previous hop's ``done`` flags and hop counts, and returns the next packed
+pool, each query's ``done`` flag, the count of queries not done and each
+query's hops (one more, up to and including the hop that found it done;
+a query done on entry is copied through and counts none):
 
 1. the E-selection (:func:`select_expand`): among the pool's unexpanded
    lanes with an id, the first E in the order of ``torch.argmin`` (E = 1:
@@ -39,21 +41,22 @@ plain version's exactly.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from . import _cuda
 from .distance import dense_point_scores
 from .hop_tail import MAX_WIDTH
 from .metric import Metric
-from .packed_hop import _METRIC_CODE
 
 #: Knuth's multiplicative hash and its inverse mod 2^32: a bijection on
 #: ids, so equal keys ⇔ equal ids, and the permuted order is unbiased
 _PERM = 2654435761
 _PERM_INV = 244002641
 _MASK32 = 0xFFFFFFFF
+
+#: the kernels' metric codes (K2's and K6's); cosine values are stored
+#: normalized and ordered by -ip
+_METRIC_CODE = {Metric.L2: 0, Metric.IP: 1, Metric.COSINE: 1, Metric.L1: 2}
 
 #: the kernel's dtype codes, of the value table and of the queries
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -119,20 +122,38 @@ def hop_lists(sel: torch.Tensor, nbr0: torch.Tensor, nbr_up: torch.Tensor,
     return out.reshape(q, -1)
 
 
+def hop_state(pool_d, pool_p, new_d, new_p, found, done, hops):
+    """The end of a hop, K2's and K6's plain versions alike: a query
+    done on entry (``done``, None: none) keeps its pool and its hop count;
+    every other one takes its new pool, its ``found`` flag and one more
+    hop.  Returns (pool_d, pool_p, done, left, hops)."""
+    q = pool_d.shape[0]
+    if done is None:
+        done = torch.zeros(q, dtype=torch.bool, device=pool_d.device)
+    if hops is None:
+        hops = torch.zeros(q, dtype=torch.int32, device=pool_d.device)
+    new_d = torch.where(done[:, None], pool_d, new_d)
+    new_p = torch.where(done[:, None], pool_p, new_p)
+    hops = hops + (~done).to(torch.int32)
+    done = done | found
+    left = torch.sum(~done, dtype=torch.int32).reshape(1)
+    return new_d, new_p, done, left, hops
+
+
 def gather_hop_plain(pool_d: torch.Tensor, pool_p: torch.Tensor,
                      nbr0: torch.Tensor, nbr_up: torch.Tensor,
                      up_slot: torch.Tensor, level: int, rows: torch.Tensor,
                      qs: torch.Tensor, ef: int, expand: int, metric: Metric,
-                     *, out=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor, torch.Tensor]:
+                     *, done=None, hops=None, out=None):
     """Plain PyTorch K6, the whole hop: :func:`select_expand`,
     :func:`hop_lists`, :func:`dedupe_hop` with E > 1, the pool membership
-    mask, :func:`.distance.dense_point_scores` and the stable merge.
-    Returns (pool_d, pool_p, done, left), ``left`` the (1,) int32 count
-    of queries not done; ``out`` (the kernel's output buffers) is not
-    used."""
+    mask, :func:`.distance.dense_point_scores`, the stable merge and
+    :func:`hop_state`.  Returns (pool_d, pool_p, done, left, hops),
+    ``left`` the (1,) int32 count of queries not done; ``out`` (the
+    kernel's output buffers) is not used."""
+    p_in = pool_p
     expand = min(expand, pool_d.shape[1])
-    pool_p, sel, done = select_expand(pool_d, pool_p, ef, expand)
+    pool_p, sel, found = select_expand(pool_d, pool_p, ef, expand)
     nbrs = hop_lists(sel, nbr0, nbr_up, up_slot, level, rows.shape[0])
     if expand > 1:
         nbrs = dedupe_hop(nbrs)
@@ -145,8 +166,7 @@ def gather_hop_plain(pool_d: torch.Tensor, pool_p: torch.Tensor,
     d, order = torch.sort(torch.cat([pool_d, nd], dim=1), dim=1, stable=True)
     packed = torch.gather(torch.cat([pool_p, nbrs * 2], dim=1), 1,
                           order[:, :ef])
-    left = torch.sum(~done, dtype=torch.int32).reshape(1)
-    return d[:, :ef], packed, done, left
+    return hop_state(pool_d, p_in, d[:, :ef], packed, found, done, hops)
 
 
 def hop_width(ef: int, expand: int, nbr0: torch.Tensor,
@@ -167,38 +187,66 @@ _INPUTS = (("pool_d", torch.float32, 2), ("pool_p", torch.int32, 2),
 
 
 def hop_buffers(q: int, ef: int, device, work=None):
-    """The output buffers of one :func:`gather_hop` (``out``): a (Q, ef)
-    pool, (Q,) done flags, the (1,) count and the scratch (``work``, or a
+    """The output buffers of one :func:`gather_hop` or
+    :func:`.packed_hop.packed_hop` (``out``): a (Q, ef) pool, (Q,) done
+    flags, the (1,) count, (Q,) hop counts and the scratch (``work``, or a
     new zero one)."""
     return (torch.empty((q, ef), dtype=torch.float32, device=device),
             torch.empty((q, ef), dtype=torch.int32, device=device),
             torch.empty((q,), dtype=torch.bool, device=device),
             torch.empty((1,), dtype=torch.int32, device=device),
+            torch.empty((q,), dtype=torch.int32, device=device),
             torch.zeros(2, dtype=torch.int32, device=device)
             if work is None else work)
+
+
+def check_state(done, hops, q: int, dev) -> None:
+    """The previous hop's (Q,) bool done flags and (Q,) int32 hop counts
+    (either None) as the kernels take them."""
+    for name, t, dtype in (("done", done, torch.bool),
+                           ("hops", hops, torch.int32)):
+        if t is not None and (t.device != dev or t.dtype != dtype
+                              or tuple(t.shape) != (q,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({q},) {dtype} "
+                             f"tensor on {dev}")
+
+
+def check_out(out, pool_d, pool_p, q: int, name: str) -> None:
+    """``out`` is :func:`hop_buffers`' six tensors, apart from the
+    pool."""
+    if (len(out) != 6 or out[1].shape != pool_p.shape
+            or out[2].shape != (q,) or out[4].shape != (q,)
+            or out[0].data_ptr() == pool_d.data_ptr()
+            or out[1].data_ptr() == pool_p.data_ptr()):
+        raise ValueError(f"{name}'s out: (Q, ef) f32, (Q, ef) int32, (Q,) "
+                         "bool, (1,) int32, (Q,) int32 and (2,) int32, "
+                         "apart from the pool")
 
 
 def gather_hop(pool_d: torch.Tensor, pool_p: torch.Tensor,
                nbr0: torch.Tensor, nbr_up: torch.Tensor,
                up_slot: torch.Tensor, level: int, rows: torch.Tensor,
                qs: torch.Tensor, ef: int, expand: int, metric: Metric,
-               *, out=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor, torch.Tensor]:
+               *, done=None, hops=None, out=None):
     """K6 wrapper: the pool (Q, ef) f32 distances and int32 packed ids
     (``id·2 | expanded``), the level-0 lists ``nbr0`` (cap, 2m), the
     upper lists ``nbr_up`` (slots, L, m) and ``up_slot`` (cap,) int32, the
     ``level``, the (N, D) f32, bf16 or f16 value table ``rows``, the (Q,
-    D) f32, bf16 or f16 queries ``qs``, E = ``expand``.  Returns (pool_d,
-    pool_p, done (Q,) bool, left (1,) int32), written into ``out`` where
-    it is given: those four tensors (none of them the input pool) and the
-    kernel's (2,) int32 scratch, zero before its first launch (the
+    D) f32, bf16 or f16 queries ``qs``, E = ``expand``, and the previous
+    hop's ``done`` (Q,) bool and ``hops`` (Q,) int32 (None: none done, no
+    hops).  Returns (pool_d, pool_p, done (Q,) bool, left (1,) int32,
+    hops (Q,) int32), written into ``out`` where it is given
+    (:func:`hop_buffers`: those five tensors, none of them the input pool,
+    and the kernel's (2,) int32 scratch, zero before its first launch: the
     kernel's cross-block count and ticket; each launch leaves it at zero,
     and launches that share it run one after another).  CUDA tensors
     launch the kernel; CPU tensors take :func:`gather_hop_plain`.
     ``launches`` counts every launch."""
     if not pool_d.is_cuda:
         return gather_hop_plain(pool_d, pool_p, nbr0, nbr_up, up_slot, level,
-                                rows, qs, ef, expand, metric)
+                                rows, qs, ef, expand, metric, done=done,
+                                hops=hops)
     dev = pool_d.device
     inputs = (pool_d, pool_p, nbr0, nbr_up, up_slot, rows, qs)
     for t, (name, dtype, ndim) in zip(inputs, _INPUTS):
@@ -220,17 +268,13 @@ def gather_hop(pool_d: torch.Tensor, pool_p: torch.Tensor,
             f"{tuple(nbr_up.shape)}, up_slot {tuple(up_slot.shape)}, rows "
             f"{tuple(rows.shape)}, qs {tuple(qs.shape)}, ef={ef}, "
             f"expand={expand}, level={level}")
+    check_state(done, hops, q, dev)
     if out is None:
         out = hop_buffers(q, ef, dev)
-    elif (out[1].shape != pool_p.shape or out[2].shape != (q,)
-          or out[0].data_ptr() == pool_d.data_ptr()
-          or out[1].data_ptr() == pool_p.data_ptr()):
-        raise ValueError("gather_hop's out: (Q, ef) f32, (Q, ef) int32, "
-                         "(Q,) bool, (1,) int32 and (2,) int32, apart "
-                         "from the pool")
-    out_d, out_p, done, left, work = out
+    check_out(out, pool_d, pool_p, q, "gather_hop")
+    out_d, out_p, out_done, left, out_hops, work = out
     if q == 0:
-        return out_d, out_p, done, left.zero_()
+        return out_d, out_p, out_done, left.zero_(), out_hops
     expand = min(expand, ef)
     width = hop_width(ef, expand, nbr0, nbr_up, level)
     if width > MAX_WIDTH:
@@ -246,8 +290,9 @@ def gather_hop(pool_d: torch.Tensor, pool_p: torch.Tensor,
             nbr_up.shape[0], nbr_up.shape[1], nbr_up.shape[2], level,
             rows.data_ptr(), rows.shape[0], qs.data_ptr(), q, ef, expand, d,
             _DTYPES[rows.dtype], _DTYPES[qs.dtype], _METRIC_CODE[metric],
-            out_d.data_ptr(), out_p.data_ptr(), done.data_ptr(),
-            work.data_ptr(), left.data_ptr(), stream)
+            out_d.data_ptr(), out_p.data_ptr(), out_done.data_ptr(),
+            _ptr(done), _ptr(hops), out_hops.data_ptr(), work.data_ptr(),
+            left.data_ptr(), stream)
 
     if dev.index == torch.cuda.current_device():
         err = launch()
@@ -256,7 +301,12 @@ def gather_hop(pool_d: torch.Tensor, pool_p: torch.Tensor,
             err = launch()
     _cuda.check(err, "pgvt_gather_hop")
     gather_hop.launches += 1
-    return out_d, out_p, done, left
+    return out_d, out_p, out_done, left, out_hops
+
+
+def _ptr(t) -> int:
+    """A tensor's device address, or 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 gather_hop.launches = 0

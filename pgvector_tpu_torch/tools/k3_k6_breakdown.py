@@ -104,8 +104,9 @@ def _k6_launcher(lib, st, ef, expand):
             up_slot.data_ptr(), nbr_up.shape[0], nbr_up.shape[1],
             nbr_up.shape[2], 0, rows.data_ptr(), rows.shape[0],
             qs.data_ptr(), q, ef, expand, d, 0, 0, 0, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[4].data_ptr(),
-            out[3].data_ptr(), torch.cuda.current_stream().cuda_stream),
+            out[1].data_ptr(), out[2].data_ptr(), None, None,
+            out[4].data_ptr(), out[5].data_ptr(), out[3].data_ptr(),
+            torch.cuda.current_stream().cuda_stream),
             "pgvt_gather_hop")
         return out
     return run
@@ -184,11 +185,12 @@ def main(argv=None):
     st = _k6_state(args.n, ef=ef)
     runs = {name: _k6_launcher(lib, st, ef, expand)
             for name, lib in k6_libs.items()}
-    d1, p1, done1, left1, _ = runs["whole"]()
-    d0, p0, done0, left0 = gather_hop_plain(*st[:5], 0, *st[5:], ef, expand,
-                                            Metric.L2)
+    d1, p1, done1, left1, hops1, _ = runs["whole"]()
+    d0, p0, done0, left0, hops0 = gather_hop_plain(*st[:5], 0, *st[5:], ef,
+                                                   expand, Metric.L2)
     fin = torch.isfinite(d0)
     if not (torch.equal(done1, done0) and torch.equal(left1, left0)
+            and torch.equal(hops1, hops0)
             and torch.allclose(d1[fin], d0[fin], atol=1e-4, rtol=1e-5)):
         raise SystemExit("k3_k6_breakdown: K6 differs from gather_hop_plain")
     k6_ms = _rounds(runs)

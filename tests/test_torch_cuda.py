@@ -45,6 +45,7 @@ from pgvector_tpu_torch.ops import distance as TD  # noqa: E402
 from pgvector_tpu_torch.ops.bit_scan import (  # noqa: E402
     bit_point_scores, bit_point_scores_plain, bit_topk, bit_topk_plain)
 from pgvector_tpu_torch.index import ivf_kmeans  # noqa: E402
+from pgvector_tpu_torch.index.hnsw_kernels import HOP_READ_EVERY  # noqa: E402
 from pgvector_tpu_torch.io import checkpoint  # noqa: E402
 from pgvector_tpu_torch.io.convert import (  # noqa: E402
     hnsw_from_numpy, ivfflat_from_numpy)
@@ -165,72 +166,98 @@ def test_hop_tail_kernel_rejects_wide_rows(dev):
         hop_tail(*args, 100, MAX_WIDTH)
 
 
-@pytest.mark.parametrize("d", [7, 33, 128, 960])
+def _assert_same_hop(out1, out0, atol=None):
+    """Two whole hops agree: the pools as top-k lists (``atol`` a bound per
+    entry, else the f32 tolerance), the done flags, the count of queries
+    not done and the hop counts exactly."""
+    d1, p1, done1, left1, hops1 = (t.cpu() for t in out1)
+    d0, p0, done0, left0, hops0 = (t.cpu() for t in out0)
+    if atol is None:
+        assert_same_pool(d0, p0, d1, p1)
+    else:
+        assert_same_pool(d0, p0, d1, p1, atol=atol, rtol=0.0)
+    assert torch.equal(done1, done0) and torch.equal(hops1, hops0)
+    assert int(left1) == int(left0)
+
+
+@pytest.mark.parametrize("d", [7, 33, 128, 960, 1001])
 @pytest.mark.parametrize("slab", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["L2", "IP", "L1"])
 @pytest.mark.parametrize("ef,e_sel", [(24, 8), (100, 1), (1000, 4)])
 def test_packed_hop_kernel_matches_plain(dev, d, slab, metric, ef, e_sel):
-    """K2 against its plain version on seeded hops: row-aligned and
-    unaligned slabs (16-byte loads or single values), every metric code,
-    one to eight slabs a row, tails of 64 to 2,048 lanes."""
+    """K2, the whole hop, against its plain version on seeded pools:
+    16-byte slab rows through the bulk-copy ring and the others read as
+    single values (counted apart), slabs of a warp a query (D 7 to 128)
+    and of several (D 960 and 1,001: more than 16 KB), every metric code,
+    one to eight slabs a row, merges of 64 to 2,048 lanes; then a second
+    hop from the first's done flags and hop counts."""
     case = packed_hop_case(d + ef, 37, ef, e_sel, d=d, cap=1200)
     args = [torch.from_numpy(a).to(dev) for a in case]
-    args[4] = args[4].to(slab)
-    launches = packed_hop.launches
-    d1, p1 = packed_hop(*args, ef, Metric[metric])
+    args[3] = args[3].to(slab)
+    path = "bulk" if d * args[3].element_size() % 16 == 0 else "scalar"
+    launches = dict(packed_hop.launches_by_path)
+    out1 = packed_hop(*args, ef, e_sel, Metric[metric])
     torch.cuda.synchronize()
-    assert packed_hop.launches == launches + 1
-    d0, p0 = packed_hop_plain(*args, ef, Metric[metric])
-    assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+    assert packed_hop.launches_by_path[path] == launches[path] + 1
+    out0 = packed_hop_plain(*args, ef, e_sel, Metric[metric])
+    _assert_same_hop(out1, out0)
+    state = dict(done=out0[2], hops=out0[4])
+    _assert_same_hop(
+        packed_hop(out0[0], out0[1], *args[2:], ef, e_sel, Metric[metric],
+                   **state),
+        packed_hop_plain(out0[0], out0[1], *args[2:], ef, e_sel,
+                         Metric[metric], **state))
 
 
-def _assert_int8_hop(a, d1, p1, d0, p0):
+def _assert_int8_hop(a, out1, out0):
     """K2-int8 against its plain version: L2, inner product and cosine
     bit for bit; L1 within int8_l1_bound."""
     metric = a[7]
     if metric is Metric.L1:
-        atol = int8_l1_bound(d0, a[4].shape[2]).cpu().numpy()
-        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu(), atol=atol,
-                         rtol=0.0)
+        atol = int8_l1_bound(out0[0], a[3].shape[2]).cpu().numpy()
+        _assert_same_hop(out1, out0, atol=atol)
     else:
-        assert torch.equal(d1, d0) and torch.equal(p1, p0), metric
+        for x, y in zip(out1, out0):
+            assert torch.equal(x, y.to(x.device)), metric
 
 
-@pytest.mark.parametrize("d", [33, 128, 960])
+@pytest.mark.parametrize("d,m2", [(33, 16), (128, 16), (960, 16),
+                                  (960, 32)])
 @pytest.mark.parametrize("metric", ["L2", "IP", "COSINE", "L1"])
 @pytest.mark.parametrize("ef,e_sel", [(24, 8), (100, 1), (100, 8)])
-def test_packed_hop_int8_kernel_matches_plain(dev, d, metric, ef, e_sel):
-    """K2's int8 slab against its plain version on seeded hops with -1
-    selections and list slots: 16-byte rows (D 128 and 960) and unaligned
-    ones (D 33), every metric, one to eight slabs a row."""
-    case = int8_hop_case(d + ef + 1, 37, ef, e_sel, d=d, cap=1200)
+def test_packed_hop_int8_kernel_matches_plain(dev, d, m2, metric, ef, e_sel):
+    """K2's int8 slab against its plain version on seeded pools with -1
+    list slots: 16-byte rows through the ring (D 128 and 960) and
+    unaligned ones read as single values (D 33), a warp a query and, at
+    960 x 32 (30 KB slabs, the 960-d main path's), several; every metric,
+    one to eight slabs a row."""
+    case = int8_hop_case(d + ef + 1, 37, ef, e_sel, m2=m2, d=d, cap=1200)
     t = [torch.from_numpy(x).to(dev) for x in case]
-    qc, sq, q2 = TD.int8_query(t[5], t[6])
-    a = [*t[:6], ef, Metric[metric], (qc, sq, q2, t[7], t[6])]
+    qc, sq, q2 = TD.int8_query(t[4], t[5])
+    a = [*t[:5], ef, e_sel, Metric[metric], (qc, sq, q2, t[6], t[5])]
     launches = dict(packed_hop.launches_by_slab)
-    d1, p1 = packed_hop(*a)
+    out1 = packed_hop(*a)
     torch.cuda.synchronize()
     assert packed_hop.launches_by_slab["int8"] == launches["int8"] + 1
     assert packed_hop.launches_by_slab["bf16"] == launches["bf16"]
-    d0, p0 = packed_hop_plain(*a)
-    _assert_int8_hop(a, d1, p1, d0, p0)
+    _assert_int8_hop(a, out1, packed_hop_plain(*a))
 
 
 def test_packed_hop_int8_refuses_mixed_inputs(dev):
     case = int8_hop_case(5, 8, 24, 2, d=32)
     t = [torch.from_numpy(x).to(dev) for x in case]
-    qc, sq, q2 = TD.int8_query(t[5], t[6])
+    qc, sq, q2 = TD.int8_query(t[4], t[5])
     with pytest.raises(ValueError, match="only an int8 slab"):
-        packed_hop(*t[:6], 24, Metric.L2)
+        packed_hop(*t[:5], 24, 2, Metric.L2)
     with pytest.raises(ValueError, match="only an int8 slab"):
-        packed_hop(*t[:4], t[4].float(), t[5], 24, Metric.L2,
-                   (qc, sq, q2, t[7], t[6]))
+        packed_hop(*t[:3], t[3].float(), t[4], 24, 2, Metric.L2,
+                   (qc, sq, q2, t[6], t[5]))
 
 
 def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
     """K2 against its plain version on every hop state of searches over a
     graph built on the card, f32, bf16 and int8 slabs (int8: equal bit for
-    bit)."""
+    bit), and the launches against the searches' hops."""
     from pgvector_tpu_torch.index import hnsw_kernels
 
     rng = np.random.default_rng(9)
@@ -242,24 +269,32 @@ def test_packed_hop_kernel_on_a_card_graph(dev, monkeypatch):
                     wave_size=512, beam_expand=4, dedup=False)
     states = []
 
-    def record(*a):
-        states.append([t.clone() if torch.is_tensor(t) else t for t in a])
-        return packed_hop(*a)
+    def keep(t):
+        return t.clone() if torch.is_tensor(t) else t
+
+    def record(*a, **kw):
+        states.append(([keep(t) for t in a],
+                       {k: keep(v) for k, v in kw.items() if k != "out"}))
+        return packed_hop(*a, **kw)
 
     monkeypatch.setattr(hnsw_kernels, "packed_hop", record)
     for mode in ("f32", "bf16", "int8"):
         monkeypatch.setenv("PGVECTOR_TPU_PACKED_SCAN", mode)
+        n = len(states)
         idx.search(q, 10, ef_search=40)
+        steps, launched = idx._last_scan_steps, idx._last_scan_launches
+        assert len(states) - n == launched
+        assert steps <= launched < steps + hnsw_kernels.HOP_READ_EVERY
     assert len(states) >= 15
-    assert {a[4].dtype for a in states} == {torch.float32, torch.bfloat16,
-                                            torch.int8}
-    for a in states:
-        d1, p1 = packed_hop(*a)
-        d0, p0 = packed_hop_plain(*a)
-        if a[4].dtype == torch.int8:
-            _assert_int8_hop(a, d1, p1, d0, p0)
+    assert {a[3].dtype for a, _ in states} == {torch.float32, torch.bfloat16,
+                                               torch.int8}
+    for a, kw in states:
+        out1 = packed_hop(*a, **kw)
+        out0 = packed_hop_plain(*a, **kw)
+        if a[3].dtype == torch.int8:
+            _assert_int8_hop(a, out1, out0)
         else:
-            assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+            _assert_same_hop(out1, out0)
 
 
 @pytest.mark.parametrize("t,c,lm", [(300, 1, 8), (300, 5, 8), (300, 8, 8),
@@ -336,20 +371,27 @@ def test_gather_hop_kernel_matches_plain(dev, d, dtype, metric, ef, e_sel):
     across lists), level 0 and level 2 (m-wide lists, elements without a
     slot), listed ids past the rows, NaN, +inf, tied, fully expanded and
     empty pools, the sorts in registers and (ef 1,000) in shared memory;
-    the done flags and the count of queries not done equal."""
+    the done flags, the count of queries not done and the hop counts
+    equal, also for a second hop from the first's done flags and hop
+    counts."""
     case = gather_hop_case(d + ef + e_sel, 37, ef, d=d, cap=1200, levels=2)
     for level in (0, 2):
         args = _hop_args(case, dev, level, dtype,
                          torch.float32 if d == 33 else dtype)
         launches = gather_hop.launches
-        d1, p1, done1, left1 = gather_hop(*args, ef, e_sel, Metric[metric])
+        out1 = gather_hop(*args, ef, e_sel, Metric[metric])
         torch.cuda.synchronize()
         assert gather_hop.launches == launches + 1
-        d0, p0, done0, left0 = gather_hop_plain(*args, ef, e_sel,
-                                                Metric[metric])
-        assert torch.equal(done1, done0) and torch.equal(left1, left0)
-        assert_same_pool(d0.cpu(), p0.cpu(), d1.cpu(), p1.cpu())
+        out0 = gather_hop_plain(*args, ef, e_sel, Metric[metric])
+        _assert_same_hop(out1, out0)
+        done1 = out1[2]
         assert bool(done1[3]) and bool(done1[7]) and not bool(done1[0])
+        state = dict(done=out0[2], hops=out0[4])
+        _assert_same_hop(
+            gather_hop(out0[0], out0[1], *args[2:], ef, e_sel,
+                       Metric[metric], **state),
+            gather_hop_plain(out0[0], out0[1], *args[2:], ef, e_sel,
+                             Metric[metric], **state))
 
 
 def test_gather_hop_kernel_rejects(dev):
@@ -490,7 +532,9 @@ def test_flat_and_hnsw_on_cuda_match_cpu(dev, monkeypatch):
         h0, r0 = cpu_idx.search(q, 10, ef_search=64)
         launches = packed_hop.launches
         h1, r1 = gpu_idx.search(q, 10, ef_search=64)
-        assert packed_hop.launches == gpu_idx._last_scan_steps + launches
+        assert packed_hop.launches == gpu_idx._last_scan_launches + launches
+        assert (gpu_idx._last_scan_steps <= gpu_idx._last_scan_launches
+                < gpu_idx._last_scan_steps + HOP_READ_EVERY)
         assert_same_topk(h0, r0, h1, r1)
     # a graph built on the card draws the same levels and finds the exact
     # neighbours as well as the CPU-built one

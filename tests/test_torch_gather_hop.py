@@ -101,12 +101,12 @@ def _reference(metric, dtype, st, level, expand):
 
 def _port(metric, dtype, st, level, expand):
     """One hop through ``hnsw_kernels.gather_hop`` (the plain version on
-    the CPU): (pool_d, pool_p, done), checking ``left`` and that nothing
-    launched."""
+    the CPU): (pool_d, pool_p, done), checking ``left``, the hop counts
+    (one a query) and that nothing launched."""
     vals, nbr0, nbr_up, up_slot, qs, pool_d, pool_i, pool_x = st
     values = torch.from_numpy(vals).to(dtype)
     launches = TG.gather_hop.launches
-    td, tp, tdone, left = TK.gather_hop(
+    td, tp, tdone, left, hops = TK.gather_hop(
         torch.from_numpy(pool_d), torch.from_numpy(pool_i * 2 + pool_x),
         torch.from_numpy(nbr0), torch.from_numpy(nbr_up),
         torch.from_numpy(up_slot), level, values,
@@ -115,6 +115,7 @@ def _port(metric, dtype, st, level, expand):
     assert tp.dtype == torch.int32 and tdone.dtype == torch.bool
     assert left.dtype == torch.int32 and left.shape == (1,)
     assert int(left) == int((~tdone).sum())
+    assert hops.dtype == torch.int32 and (hops == 1).all()
     return td.numpy(), tp.numpy(), tdone.numpy()
 
 
@@ -258,11 +259,16 @@ def test_select_expand_is_the_kernels_rounds(expand, sorted_pool):
     assert want[2][0] and want[2][1]
 
 
+@pytest.mark.parametrize("read_every", [1, TK.HOP_READ_EVERY])
 @pytest.mark.parametrize("expand", [1, 4])
 @pytest.mark.parametrize("level", [0, 1])
-def test_search_layer_k6_route_matches_torch_route(expand, level):
+def test_search_layer_k6_route_matches_torch_route(expand, level, read_every,
+                                                   monkeypatch):
     """search_layer on the K6 route (the pool packed from hop to hop, one
-    gather_hop a hop) gives the torch-op route's pools and hop count."""
+    gather_hop a hop, the count read every HOP_READ_EVERY hops) gives the
+    torch-op route's pools and hop count; the hops launched reach the
+    count and stay below it plus HOP_READ_EVERY."""
+    monkeypatch.setattr(TK, "HOP_READ_EVERY", read_every)
     vals, nbr0, nbr_up, up_slot, qs, *_ = _state(60 + expand + level, "L2",
                                                  torch.float32)
     values = torch.from_numpy(vals)
@@ -274,14 +280,18 @@ def test_search_layer_k6_route_matches_torch_route(expand, level):
     init_i = torch.from_numpy(np.random.default_rng(level).integers(
         0, CAP, size=(Q, 2)).astype(np.int32))
     init_d = score(q, init_i)
-    outs = []
-    for rows, lists in ((None, None), (values, (*tables, level))):
+    outs, stats = [], [{}, {}]
+    for (rows, lists), st in zip(((None, None), (values, (*tables, level))),
+                                 stats):
         outs.append(TK.search_layer(
             score, lambda e: nbrs_of(e, level), q, init_d, init_i, ef=EF,
             max_steps=4 * EF + 64, expand=expand, metric=Metric.L2,
-            rows=rows, lists=lists))
+            rows=rows, lists=lists, stats=st))
     (d0, i0, s0), (d1, i1, s1) = outs
     assert s1 == s0 and s0 > 1
+    for st in stats:
+        assert st["steps"] == s0
+        assert s0 <= st["launches"] < s0 + read_every
     np.testing.assert_array_equal(d1.numpy(), d0.numpy())
     np.testing.assert_array_equal(i1.numpy(), i0.numpy())
 
@@ -301,7 +311,8 @@ def test_gather_hop_routes_to_plain_on_cpu(e_sel, dtype):
     for a, b in zip(out0, out1):
         assert torch.equal(a, b)
     assert TG.gather_hop.launches == launches
-    d0, p0, done, left = out0
+    d0, p0, done, left, hops = out0
+    assert (hops == 1).all()
     ids = (p0 >> 1).numpy()
     for r in range(ids.shape[0]):
         live = ids[r][ids[r] >= 0]
@@ -309,3 +320,25 @@ def test_gather_hop_routes_to_plain_on_cpu(e_sel, dtype):
     assert np.isfinite(d0.numpy()[0]).all()
     assert done[3] and done[7] and not done[0]
     assert int(left) == int((~done).sum())
+
+
+@pytest.mark.parametrize("e_sel", [1, 4])
+def test_gather_hop_plain_carries_done_and_hops(e_sel):
+    """A second hop from the first's state: the queries done on entry keep
+    their pool and their hop count, every other one takes the hop of a
+    stateless call and counts one more; ``left`` counts the queries not
+    done after it."""
+    case = [torch.from_numpy(a) for a in gather_hop_case(5, 8, EF)]
+    args = (*case[:5], 0, *case[5:])
+    d1, p1, done1, _, hops1 = TG.gather_hop(*args, EF, e_sel, Metric.L2)
+    assert done1.any() and not done1.all()
+    rest = args[2:]
+    d2, p2, done2, left2, hops2 = TG.gather_hop(
+        d1, p1, *rest, EF, e_sel, Metric.L2, done=done1, hops=hops1)
+    f2, fp, fdone, _, _ = TG.gather_hop(d1, p1, *rest, EF, e_sel, Metric.L2)
+    keep = done1[:, None]
+    assert torch.equal(torch.where(keep, d1, f2), d2)
+    assert torch.equal(torch.where(keep, p1, fp), p2)
+    assert torch.equal(done2, done1 | fdone)
+    assert torch.equal(hops2, 1 + (~done1).to(torch.int32))
+    assert int(left2) == int((~done2).sum())

@@ -159,39 +159,57 @@ def test_hop_tail_plain_equals_pallas(ef, w):
     assert hop_tail.launches == launches  # CPU tensors launch nothing
 
 
+def reference_packed_hop(pool_d, pool_p, nbr0, vals, qs, ef, e_sel, metric,
+                         int8=None, pallas_tail=True):
+    """The reference's packed hop from the pool: ``_hop_body`` with the
+    slabs (and, for int8, their scale and norms), the visited set off and
+    its Pallas tail in interpret mode (or its XLA merge).  Returns
+    (pool_d, pool_p, done) as numpy."""
+    from pgvector_tpu.index import hnsw_kernels as JK
+
+    jnbr0 = jnp.asarray(nbr0)
+    packed = ((jnp.asarray(vals), jnp.asarray(qs)) if int8 is None
+              else (jnp.asarray(vals), jnp.asarray(qs), *map(jnp.asarray,
+                                                              int8)))
+    d, i, x, _, done = JK._hop_body(
+        None, lambda e: jnbr0[jnp.maximum(e, 0)], jnp.asarray(qs),
+        jnp.asarray(pool_d), jnp.asarray(pool_p >> 1),
+        jnp.asarray((pool_p & 1) == 1), None, ef, e_sel, vmode="off",
+        packed=packed, metric=JMetric[metric], pallas_tail=pallas_tail)
+    d, i, x = (np.asarray(a) for a in (d, i, x))
+    return d, i * 2 + x, np.asarray(done)
+
+
 @pytest.mark.parametrize("ef", [24, 100])
 @pytest.mark.parametrize("e_sel", [1, 8])
 @pytest.mark.parametrize("slab", ["f32", "bf16"])
-@pytest.mark.parametrize("metric", ["L2", "IP"])
+@pytest.mark.parametrize("metric", METRICS)
 def test_packed_hop_plain_matches_reference_step(ef, e_sel, slab, metric):
-    """K2's plain version against the reference's packed Pallas-tail step
-    (the slab gather, ``dense_point_scores``, then ``pallas_hop.hop_tail``
-    in interpret mode) on the same seeded hop: the same pool apart from
-    ties, with f32 tolerance on distances; the CPU wrapper takes the plain
-    version."""
-    from pgvector_tpu.index import hnsw_kernels as JK
-
-    pool_d, pool_p, sel, nbr0, vals, qs = packed_hop_case(
-        ef * 10 + e_sel, 6, ef, e_sel)
-    q, w = len(qs), e_sel * nbr0.shape[1]
-    jvals = jnp.asarray(vals)
+    """K2's plain version, the whole hop from the pool, against the
+    reference's packed Pallas-tail hop (``_hop_body``: the E-selection, the
+    slab gather, ``dense_point_scores``, then ``pallas_hop.hop_tail`` in
+    interpret mode) on the same seeded pools: the same pool apart from
+    ties, with f32 tolerance on distances, and the same done flags; every
+    query counts one hop; the CPU wrapper takes the plain version."""
+    pool_d, pool_p, nbr0, vals, qs = packed_hop_case(ef * 10 + e_sel, 7, ef,
+                                                     e_sel)
     tvals = torch.from_numpy(vals)
     if slab == "bf16":  # both round to nearest even
-        jvals, tvals = jvals.astype(jnp.bfloat16), tvals.to(torch.bfloat16)
-    safe = np.maximum(sel, 0)
-    nbrs = np.where(sel[:, None] >= 0, nbr0[safe], -1).reshape(q, w)
-    nd = JK.dense_point_scores(JMetric[metric], jnp.asarray(qs),
-                               jvals[safe].reshape(q, w, -1),
-                               jnp.asarray(nbrs))
-    d0, p0 = jax_hop_tail(pool_d, pool_p, nd, nbrs, ef, w)
-    args = [torch.from_numpy(a) for a in (pool_d, pool_p, sel, nbr0)] + [
+        tvals = tvals.to(torch.bfloat16)
+    d0, p0, done0 = reference_packed_hop(
+        pool_d, pool_p, nbr0, tvals.float().numpy(), qs, ef, e_sel, metric)
+    args = [torch.from_numpy(a) for a in (pool_d, pool_p, nbr0)] + [
         tvals, torch.from_numpy(qs)]
-    d1, p1 = packed_hop_plain(*args, ef, TMetric[metric])
-    assert_same_pool(np.asarray(d0), np.asarray(p0), d1.numpy(), p1.numpy())
+    d1, p1, done1, left, hops = packed_hop_plain(*args, ef, e_sel,
+                                                 TMetric[metric])
+    assert_same_pool(d0, p0, d1.numpy(), p1.numpy())
+    np.testing.assert_array_equal(done1.numpy(), done0)
     assert (p1.numpy()[np.isinf(d1.numpy())] == -2).all()
+    assert (hops == 1).all() and int(left) == int((~done1).sum())
     launches = packed_hop.launches
-    d2, p2 = packed_hop(*args, ef, TMetric[metric])
-    assert torch.equal(d1, d2) and torch.equal(p1, p2)
+    out = packed_hop(*args, ef, e_sel, TMetric[metric])
+    for a, b in zip(out, (d1, p1, done1, left, hops)):
+        assert torch.equal(a, b)
     assert packed_hop.launches == launches  # CPU tensors launch nothing
 
 

@@ -64,14 +64,19 @@ def assert_same_topk(d_ref, i_ref, d_got, i_got, atol=ATOL, rtol=RTOL):
             start = j
 
 
-def packed_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
-    """Seeded numpy inputs of one packed hop: (pool_d, pool_p, sel_flat,
-    nbr0, nbr_vals, qs).  Pools are sorted, duplicate-free and partly
-    expanded; row 1's pool is half empty; list slots and selections are
-    partly -1; row 3 selects nothing; row 0 meets a pool entry among its
-    candidates and, with e_sel > 1, row 2 selects one slab twice."""
+def packed_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400, nan=False):
+    """Seeded numpy inputs of one whole packed hop: (pool_d, pool_p, nbr0,
+    nbr_vals, qs).  Pools are sorted, duplicate-free and partly expanded,
+    each with an unexpanded best lane; list slots are partly -1.  Row 0's
+    best element lists a pool entry; row 1's pool is half empty; row 2's
+    two best elements share half their lists and one list repeats an id;
+    row 3's pool is fully expanded (done); with q > 4, row 4 ends in +inf
+    lanes with ids; with q > 5, row 5's distances tie in pairs, as do two
+    rows of its best element's slab; with q > 6, row 6's pool is empty;
+    with ``nan`` and q > 7, row 7 holds a NaN at an unexpanded lane."""
     rng = np.random.default_rng(seed)
-    nbr0 = rng.integers(0, cap, size=(cap, m2)).astype(np.int32)
+    nbr0 = np.stack([rng.choice(cap, m2, replace=False)
+                     for _ in range(cap)]).astype(np.int32)
     nbr0[rng.random((cap, m2)) < 0.1] = -1
     vals = rng.normal(size=(cap, m2, d)).astype(np.float32)
     qs = rng.normal(size=(q, d)).astype(np.float32)
@@ -79,33 +84,47 @@ def packed_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
                        for _ in range(q)]).astype(np.int32)
     pool_d = np.sort(rng.random((q, ef)).astype(np.float32) * 2 * d, axis=1)
     pool_x = rng.random((q, ef)) > 0.5
+    pool_x[:, 0] = False
+    nbr0[pool_i[0, 0], 0] = pool_i[0, 1]
     pool_i[1, ef // 2:] = -1
     pool_d[1, ef // 2:] = np.inf
     pool_x[1, ef // 2:] = False
-    sel = rng.integers(0, cap, size=(q, e_sel)).astype(np.int32)
-    sel[rng.random((q, e_sel)) < 0.2] = -1
-    sel[0, 0] = 7
-    nbr0[7, 0] = pool_i[0, 0]
-    if e_sel > 1:
-        sel[2, 1] = sel[2, 0] = 11
-    sel[3] = -1
+    if q > 2:
+        a, b = pool_i[2, 0], pool_i[2, 1]
+        pool_x[2, :2] = False
+        nbr0[b, : m2 // 2] = nbr0[a, : m2 // 2]
+        nbr0[a, 3] = nbr0[a, 2] = nbr0[a, 2] if nbr0[a, 2] >= 0 else 5
+    if q > 3:
+        pool_x[3] = True
+    if q > 4:
+        pool_d[4, -3:] = np.inf
+    if q > 5:
+        pool_d[5, 1::2] = pool_d[5, 0::2][: ef // 2]
+        vals[pool_i[5, 0], 1] = vals[pool_i[5, 0], 0]
+    if q > 6:
+        pool_i[6] = -1
+        pool_d[6] = np.inf
+        pool_x[6] = False
+    if nan and q > 7:
+        pool_d[7, 3] = np.nan
+        pool_x[7, 3] = False
     pool_p = pool_i * 2 + pool_x.astype(np.int32)
-    return pool_d, pool_p, sel.reshape(-1), nbr0, vals, qs
+    return pool_d, pool_p, nbr0, vals, qs
 
 
 def int8_hop_case(seed, q, ef, e_sel, m2=16, d=16, cap=400):
     """:func:`packed_hop_case` with the slab quantized as the int8 tier
     quantizes it (per-dim scale max|v| / 127, round half to even) and
-    seeded element norms: (pool_d, pool_p, sel_flat, nbr0, int8 slab, qs,
-    scale, pnorm2)."""
-    pool_d, pool_p, sel, nbr0, vals, qs = packed_hop_case(
+    seeded element norms: (pool_d, pool_p, nbr0, int8 slab, qs, scale,
+    pnorm2)."""
+    pool_d, pool_p, nbr0, vals, qs = packed_hop_case(
         seed, q, ef, e_sel, m2=m2, d=d, cap=cap)
     scale = (np.maximum(np.abs(vals).max(axis=(0, 1)), np.float32(1e-30))
              / np.float32(127.0)).astype(np.float32)
     q8 = np.clip(np.round(vals / scale), -127, 127).astype(np.int8)
     pnorm2 = np.random.default_rng(seed + 1).uniform(
         0.5 * d, 2.0 * d, size=cap).astype(np.float32)
-    return pool_d, pool_p, sel, nbr0, q8, qs, scale, pnorm2
+    return pool_d, pool_p, nbr0, q8, qs, scale, pnorm2
 
 
 def assert_same_pool(d_ref, p_ref, d_got, p_got, atol=ATOL, rtol=RTOL):
