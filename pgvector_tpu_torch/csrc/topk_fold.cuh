@@ -14,14 +14,15 @@ namespace {
 constexpr int TOPK_MAX_K = 64;
 constexpr int TOPK_MAX_SPLITS = 64;
 
-// Fold one query's row of 32*H tile scores (row j has id id0 + j; ids
-// ascend) into its sorted k-list (bd, bi) in shared memory, by one warp.
+// Fold one query's row of 32*H tile scores (row j, at row[j * STRIDE], has
+// id id0 + j; ids ascend) into its sorted k-list (bd, bi) in shared memory,
+// by one warp.
 // The list is held in registers (entry e in lane e % 32), a ballot against
 // the k-th value rejects most rows at once, and each survivor is inserted
 // by a rank ballot and a shuffle up.  Rows arrive in ascending id order, so
 // an insert goes after every equal distance: (distance, id) order without
 // comparing ids.
-template <int H>
+template <int H, int STRIDE = 1>
 __device__ __forceinline__ void fold_row(const float* __restrict__ row,
                                          int id0, float* bd, int* bi, int k,
                                          int lane) {
@@ -32,7 +33,7 @@ __device__ __forceinline__ void fold_row(const float* __restrict__ row,
   float thr = __shfl_sync(0xffffffffu, k > 32 ? vb : va, (k - 1) & 31);
   float sv[H];
 #pragma unroll
-  for (int h = 0; h < H; ++h) sv[h] = row[32 * h + lane];
+  for (int h = 0; h < H; ++h) sv[h] = row[(32 * h + lane) * STRIDE];
   bool changed = false;
 #pragma unroll
   for (int h = 0; h < H; ++h) {

@@ -31,10 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
-    # qs, db, dbsq, nq, n, d, k, splits, tiles_per_split,
+    # qs, db, dbsq, nq, n, d, k, splits, tiles_per_split, qsplit, kth,
     # part_d, part_i, out_d, out_i, stream
     "pgvt_fused_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _P],
     # pool_d, pool_p, cand_d, cand_i, q, ef, w, out_d, out_p, stream
     "pgvt_hop_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # pool_d, pool_p, nbr0, cap, m2, nbr_vals, slab, qs, qc, sq, q2,

@@ -29,8 +29,11 @@ from .topk import merge_topk
 #: the kernel keeps each query's k best in shared memory
 MAX_K = 64
 #: queries per pass-1 block, DB rows per tile, the most DB splits pass 2
-#: merges (csrc/fused_topk.cu: BQ, BR, MAX_SPLITS)
+#: merges (K4's csrc/bit_scan.cu: BQ, BR; topk_fold.cuh: TOPK_MAX_SPLITS)
 _QT, _RT, _MAX_SPLITS = 128, 128, 64
+#: K1's rows a tile and floats of one 32-dim chunk of 128 split queries
+#: (csrc/fused_topk.cu: BR, QCH)
+_K1_RT, _K1_QCH = 64, 8192
 
 
 def supported(metric: Metric, dtype) -> bool:
@@ -59,12 +62,13 @@ def fused_topk_plain(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
     return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
-def _splits(nq: int, n: int, sms: int) -> Tuple[int, int]:
-    """(DB splits, row tiles per split).  Pass 1 holds one block per SM
-    and its blocks take equal time, so the grid should fill whole waves:
-    of the split counts that give at least one full wave, take the one
-    whose last wave is fullest, and the fewest splits among equals."""
-    tiles = -(-n // _RT)
+def _splits(nq: int, n: int, sms: int, rows: int = _RT) -> Tuple[int, int]:
+    """(DB splits, tiles of ``rows`` rows per split).  Pass 1 holds one
+    block per SM and its blocks take equal time, so the grid should fill
+    whole waves: of the split counts that give at least one full wave,
+    take the one whose last wave is fullest, and the fewest splits among
+    equals."""
+    tiles = -(-n // rows)
     q_tiles = -(-nq // _QT)
     top = min(_MAX_SPLITS, tiles)
     lo = min(top, max(1, -(-sms // q_tiles)))
@@ -106,18 +110,30 @@ def fused_topk(qs: torch.Tensor, db: torch.Tensor, dbsq: torch.Tensor,
         return out_d, out_i
     if n == 0:
         return out_d.fill_(torch.inf), out_i.fill_(-1)
+    if d % 4 or db.data_ptr() % 16:
+        # the tensor map takes 16-byte aligned rows: copy the table once,
+        # zero-padded to a multiple of 4 dims (zeros add nothing to q.x)
+        d4 = -(-d // 4) * 4
+        db = torch.nn.functional.pad(db, (0, d4 - d))
+        qs = torch.nn.functional.pad(qs, (0, d4 - d))
+        d = d4
     splits, per = _splits(nq, n, torch.cuda.get_device_properties(
-        qs.device).multi_processor_count)
+        qs.device).multi_processor_count, _K1_RT)
     part_d = torch.empty((splits, nq, k), dtype=torch.float32,
                          device=qs.device)
     part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=qs.device)
+    # scratch: the split queries, and each query's bound shared by splits
+    qsplit = torch.empty(-(-nq // _QT) * -(-d // 32) * _K1_QCH,
+                         dtype=torch.float32, device=qs.device)
+    kth = torch.empty(nq, dtype=torch.int32, device=qs.device)
     lib = _cuda.lib()
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pgvt_fused_topk(
             qs.data_ptr(), db.data_ptr(), dbsq.data_ptr(), nq, n, d, k,
-            splits, per, part_d.data_ptr(), part_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), stream)
+            splits, per, qsplit.data_ptr(), kth.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), stream)
     _cuda.check(err, "pgvt_fused_topk")
     fused_topk.launches += 1
     return out_d, out_i
@@ -131,19 +147,24 @@ fused_topk.launches = 0
 # u = 2^-24 is f32's unit roundoff.  For a query q and a row x of D dims,
 # let S = sum_i |q_i| |x_i| (at most |q| |x|).  K1 (csrc/fused_topk.cu):
 #
-# - split: hi = tf32(a) rounds to 11 significant bits, so |a - hi| <=
-#   2^-11 |a|, and lo = tf32(a - hi) leaves |a - hi - lo| <= 2^-22 |a| =
-#   4u |a|.  hi.hi + hi.lo + lo.hi then misses lo.lo (<= 4u |a||b|) and
-#   the two rounding remainders times the other operand (<= 4u |a||b|
-#   each): 12u S over the D products.  TF32 products of 11-bit
-#   significands are exact in the tensor core's f32 accumulator.
-# - accumulation: each 32-dim chunk runs 12 mma.sync ops (3 products x 4
-#   k8 slices) into fresh accumulators; an mma may truncate rather than
-#   round when it adds its 8 products into the accumulator, so allow two
-#   roundings of 2u each an op against the chunk's sum of |terms|: 48u S
-#   over the chunks.  Each chunk's sum is then added to the running tile
-#   sum in f32 (u S an add, ceil(D/32) adds).
-# - the score dbsq - 2 q.x rounds once: u (dbsq + 2S).
+# - split: hi = tf32(a) rounds to 11 significant bits (cvt.rna, in
+#   split_queries for the queries and in registers for the rows), so
+#   |a - hi| <= 2^-11 |a|, and lo = tf32(a - hi) leaves |a - hi - lo| <=
+#   2^-22 |a| = 4u |a|.  lo.hi + hi.lo + hi.hi then misses lo.lo (<= 4u
+#   |a||b|) and the two rounding remainders times the other operand (<= 4u
+#   |a||b| each): 12u S over the D products.  wgmma reads each operand as
+#   the rounded value it is given (its tf32 truncation keeps all 11 bits),
+#   the zeros past D and past the table add nothing, and TF32 products of
+#   11-bit significands are exact in its f32 accumulator.
+# - accumulation: each 32-dim chunk runs 12 wgmma.m64n128k8 ops (3
+#   products x 4 k8 slices, each op adding its slice's 8 products) into fresh
+#   accumulators, so no chain is longer than 12 ops; an op may truncate
+#   rather than round when it adds its 8 products into the accumulator,
+#   so allow two roundings of 2u each an op against the chunk's sum of
+#   |terms|: 48u S over the chunks.  Each chunk's sum is then added to the
+#   tile's running sum in f32 (u S an add, at most ceil(D/32) adds).
+# - the score dbsq - 2 q.x rounds once: u (dbsq + 2S).  The shared bound
+#   only skips rows that k others beat outright; it changes no score.
 #
 # The plain version (one f32 product, TF32 off) accumulates D products in
 # some order: at most D u S, plus the same final rounding.  The two scores

@@ -2,18 +2,29 @@
 whole and with parts of its work cut out.
 
     python -m pgvector_tpu_torch.tools.k1_breakdown [--n 1000000]
-        [--queries 8000] [--k 10]
+        [--queries 8000] [--k 10] [--variants whole,no_fold,...]
 
 Each variant is the source with the cuts of its name applied by text
 substitution (a cut whose anchor is not in the source fails the tool, so
 the cuts cannot silently stop applying), built by ``nvcc`` into
 ``_build/``, and launched through the same C entry and split layout as
-:func:`..ops.fused_topk.fused_topk`.  A cut kernel's answers are wrong;
-only the whole kernel is checked, against the plain version.  The data
-is the clustered surrogate of ``bench.make_data`` (same recipe, seed 0).
-Times are CUDA-event means of two rounds, the variants run in one order
-and then in the reverse.  Prints one JSON line with the card's name and
-power limit.
+:func:`..ops.fused_topk.fused_topk`.  The parts: the producer's TMA
+loads of the rows (and bulk copies of streamed query chunks), the math
+warps' row fragments (shared-memory loads and the hi / lo split), their
+wgmma products, their stores of each finished tile's scores, and the
+epilogue warps' checks and folds.  The variants: the whole kernel;
+without the fold; without the split; without the score stores and the
+fold; the copies alone; the products alone (fragments and wgmma); the
+fold alone (scores are then dbsq, so the fold sees a scan of the same
+size); and the skeleton left with all cut (the ring's and the score
+buffer's mbarrier handshakes).  Cuts that remove the score stores keep
+the sums live: a cut that let the compiler see them unused would drop
+the products too.  A cut kernel's answers are wrong; only the whole
+kernel is checked, against the plain version (within
+``k1_error_bound``).  The data is the clustered surrogate of
+``bench.make_data`` (same recipe, seed 0).  Times are CUDA-event means
+of two rounds, the variants run in one order and then in the reverse.
+Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,38 +38,68 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from ..ops.fused_topk import _splits, fused_topk_plain
+from ..ops.fused_topk import (_K1_QCH, _K1_RT, _QT, _splits,
+                              fused_topk_plain, k1_error_bound)
 
 SOURCE = _cuda.SRC_DIR / "fused_topk.cu"
-_FOLD_START = "    const int qb = warp * (BQ / 8);\n"
-_FOLD_END = "    // the next step's barrier orders this fold"
-_LO_PRODUCTS = ("          mma(part[i][j], al[i], bh);\n"
-                "          mma(part[i][j], ah[i], bl);\n")
-_HI_PRODUCT = "          mma(part[i][j], ah[i], bh);\n"
-_Q_PREFETCH = "      load_chunk(st, qs, q0, nq, nch * DK, d, vec);\n"
+_BYTES = "      mbar_arrive_tx(bar, ROWS_BYTES + (resident ? 0 : 4 * QCH));\n"
+_COPIES = ("      tma_rows(slot, &rows_map, ch * DK, r0, bar);\n"
+           "      if (!resident)\n"
+           "        bulk_copy(slot + ROWS_BYTES, qtile + (size_t)ch * QCH, "
+           "4 * QCH, bar);\n")
+_FRAGMENTS = ("        split_tf32(x[c0], ah[sl][0], al[sl][0]);\n"
+              "        split_tf32(x[8 * DK + c0], ah[sl][1], al[sl][1]);\n"
+              "        split_tf32(x[c1], ah[sl][2], al[sl][2]);\n"
+              "        split_tf32(x[8 * DK + c1], ah[sl][3], al[sl][3]);\n")
+_RAW = "".join(
+    f"        ah[sl][{i}] = al[sl][{i}] = __float_as_uint({v});\n"
+    for i, v in enumerate(("x[c0]", "x[8 * DK + c0]", "x[c1]",
+                           "x[8 * DK + c1]")))
+_PRODUCTS = ("        wgmma_n128(p, al[sl], bh, sl);\n"
+             "        wgmma_n128(p, ah[sl], bl, 1);\n"
+             "        wgmma_n128(p, ah[sl], bh, 1);\n")
+_SCORES = ("        *reinterpret_cast<float2*>(at) = make_float2(\n"
+           "            na - 2.f * acc[4 * j], na - 2.f * acc[4 * j + 1]);\n"
+           "        *reinterpret_cast<float2*>(at + 8 * SR) = make_float2(\n"
+           "            nb - 2.f * acc[4 * j + 2], nb - 2.f * acc[4 * j + 3]);"
+           "\n")
+# keeps the sums live (a cut that let the compiler see them unused would
+# drop the products too) and stores nothing
+_KEEP_SUMS = ("        if (acc[4 * j] + acc[4 * j + 1] + acc[4 * j + 2] +\n"
+              "            acc[4 * j + 3] == 1.2345e-30f) *at = na;\n")
+_FOLD_START = "      const float* col = s_sc + 32 * ew + lane;\n"
+_FOLD_END = "          atomicMin(kth + q0 + q, order_key(kv));\n      }\n"
 
 #: cut -> its (anchor, replacement) pairs
 CUTS = {
-    # the fold of each finished tile into the k-lists
+    # the producer's TMA loads and bulk copies (it still arrives on each
+    # stage, with no bytes, so the ring's turns stay)
+    "copies": ((_BYTES, "      mbar_arrive_tx(bar, 0);\n"),
+               (_COPIES, "")),
+    # the math warps' fragment loads and their hi / lo split
+    "fragments": ((_FRAGMENTS, ""),),
+    # the split alone (each loaded value taken as both hi and lo)
+    "split": ((_FRAGMENTS, _RAW),),
+    # the twelve wgmma ops a chunk (p stays 0)
+    "products": ((_PRODUCTS, ""),),
+    # the math warps' stores of a finished tile's scores (the handoff to
+    # the epilogue warps stays)
+    "scores": ((_SCORES, _KEEP_SUMS),),
+    # the epilogue warps' checks and folds of each tile
     "fold": ((_FOLD_START, "#if 0\n" + _FOLD_START),
-             (_FOLD_END, "#endif\n" + _FOLD_END)),
-    # two of the three TF32 products (hi.lo and lo.hi)
-    "lo_products": ((_LO_PRODUCTS, ""),),
-    # the third product as well
-    "hi_product": ((_HI_PRODUCT, ""),),
-    # the query chunks after the first tile's (the rows still stream)
-    "query_reload": ((_Q_PREFETCH,
-                      "      if (s + 1 < nchunks)\n" + _Q_PREFETCH),),
+             (_FOLD_END, _FOLD_END + "#endif\n")),
 }
 
 #: variant -> cuts; "whole" is the kernel as committed
 VARIANTS = {
     "whole": (),
     "no_fold": ("fold",),
-    "one_product": ("lo_products",),
-    "one_product_no_fold": ("lo_products", "fold"),
-    "loads_only": ("lo_products", "hi_product", "fold"),
-    "queries_once": ("query_reload",),
+    "no_split": ("split",),
+    "no_scores": ("scores", "fold"),
+    "copies_only": ("fragments", "products", "scores", "fold"),
+    "products_only": ("copies", "scores", "fold"),
+    "fold_only": ("copies", "fragments", "products"),
+    "skeleton": ("copies", "fragments", "products", "scores", "fold"),
 }
 
 
@@ -123,18 +164,22 @@ def _launcher(lib, qs, db, dbsq, k):
     nq, d = qs.shape
     n = db.shape[0]
     splits, per = _splits(nq, n, torch.cuda.get_device_properties(
-        qs.device).multi_processor_count)
+        qs.device).multi_processor_count, _K1_RT)
     part_d = torch.empty((splits, nq, k), device=qs.device)
     part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=qs.device)
+    qsplit = torch.empty(-(-nq // _QT) * -(-d // 32) * _K1_QCH,
+                         device=qs.device)
+    kth = torch.empty(nq, dtype=torch.int32, device=qs.device)
     out_d = torch.empty((nq, k), device=qs.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=qs.device)
 
     def run():
         _cuda.check(lib.pgvt_fused_topk(
             qs.data_ptr(), db.data_ptr(), dbsq.data_ptr(), nq, n, d, k,
-            splits, per, part_d.data_ptr(), part_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "pgvt_fused_topk")
+            splits, per, qsplit.data_ptr(), kth.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "pgvt_fused_topk")
         return out_d, out_i
     return run
 
@@ -163,21 +208,28 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=8000)
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to time (whole first)")
     args = ap.parse_args(argv)
+    names = ["whole"] + [v for v in args.variants.split(",")
+                         if v and v != "whole"]
+    if any(v not in VARIANTS for v in names):
+        raise SystemExit(f"k1_breakdown: variants are {list(VARIANTS)}")
     if not torch.cuda.is_available():
         raise SystemExit("k1_breakdown needs a CUDA device")
     smi = smi_line()
-    libs = build_variants(VARIANTS)
+    libs = build_variants(names)
     db, qs = (torch.as_tensor(a, device="cuda")
               for a in clustered(args.n, args.queries))
     dbsq = (db * db).sum(1)
     runs = {name: _launcher(lib, qs, db, dbsq, args.k)
             for name, lib in libs.items()}
     # the whole kernel against its plain version: the sorted k-lists of
-    # distances agree within f32 tolerance (ids may differ at ties)
+    # distances agree within K1's derived bound (ids may differ at ties)
     d1, i1 = runs["whole"]()
     d0, i0 = fused_topk_plain(qs, db, dbsq, args.k)
-    if not torch.allclose(d1, d0, atol=1e-4, rtol=1e-5):
+    if not bool(((d1 - d0).abs() <= k1_error_bound(
+            qs, db, dbsq, i0, i1)).all()):
         raise SystemExit("k1_breakdown: the whole kernel disagrees with "
                          "fused_topk_plain")
     order = list(runs) + list(runs)[::-1]
@@ -189,7 +241,7 @@ def main(argv=None):
         "queries": args.queries, "k": args.k,
         "max_abs_err": float((d1 - d0).abs().max()),
         "ids_equal_frac": float((i1 == i0).float().mean()),
-        "ms": ms, "cuts": {v: list(c) for v, c in VARIANTS.items()}}))
+        "ms": ms, "cuts": {v: list(VARIANTS[v]) for v in names}}))
 
 
 if __name__ == "__main__":

@@ -119,6 +119,66 @@ def test_fused_topk_3xtf32_edge_cases(dev, d, k):
     assert not torch.isinf(d1).any()
 
 
+def _k1_case(dev, rng, nq, n, d, ip, dead=0.1):
+    q = torch.tensor(rng.normal(size=(nq, d)), dtype=torch.float32, device=dev)
+    db = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                      device=dev)
+    dbsq = torch.zeros(n, device=dev) if ip else (db * db).sum(1)
+    dbsq[torch.tensor(rng.random(n) < dead, device=dev)] = torch.inf
+    return q, db, dbsq
+
+
+def _k1_agrees(q, db, dbsq, k):
+    d1, i1 = fused_topk(q, db, dbsq, k)
+    d0, i0 = fused_topk_plain(q, db, dbsq, k)
+    bound = k1_error_bound(q, db, dbsq, i0, i1).cpu().numpy()
+    assert_same_topk(d0.cpu(), i0.cpu(), d1.cpu(), i1.cpu(), atol=bound,
+                     rtol=0.0)
+    return d1, i1
+
+
+@pytest.mark.parametrize("d", [128, 36])
+@pytest.mark.parametrize("ip", [False, True])
+def test_fused_topk_whole_tile_products(dev, d, ip):
+    """N = 64 rows and k = 64: K1 returns every score, so each product of
+    a 64-row wgmma tile (every query column of a 128-query block, every k8
+    slice and k-half of the descriptors; D 36 ends in a 4-dim chunk) is
+    held against the plain version, and every row comes back."""
+    rng = np.random.default_rng(64 + d + ip)
+    q, db, dbsq = _k1_case(dev, rng, 130, 64, d, ip, dead=0.0)
+    d1, i1 = _k1_agrees(q, db, dbsq, 64)
+    assert not torch.isinf(d1).any()
+    assert torch.equal(torch.sort(i1, dim=1).values,
+                       torch.arange(64, dtype=torch.int32,
+                                    device=dev).expand(130, -1))
+
+
+@pytest.mark.parametrize("nq", [1, 63, 65, 129, 257])
+@pytest.mark.parametrize("k", [10, 64])
+def test_fused_topk_query_counts(dev, nq, k):
+    """Query counts around the 64-query halves and 128-query blocks: a
+    block with one live query, a last block of 1 or 65 live queries (L2
+    at k 10, inner product at k 64)."""
+    rng = np.random.default_rng(nq * 7 + k)
+    q, db, dbsq = _k1_case(dev, rng, nq, 3001, 128, k == 64)
+    _k1_agrees(q, db, dbsq, k)
+
+
+@pytest.mark.parametrize("d", [128, 40])
+def test_fused_topk_unaligned_table_view(dev, d):
+    """A table view whose base is 4 bytes past a 16-byte boundary: the
+    wrapper copies it once, and the answer equals the aligned table's."""
+    rng = np.random.default_rng(d)
+    q, base, _ = _k1_case(dev, rng, 70, 4001, d, False)
+    flat = base.reshape(-1)[1: 1 + 4000 * d]
+    db = flat.view(4000, d)
+    assert db.data_ptr() % 16 == 4 and db.is_contiguous()
+    dbsq = (db * db).sum(1)
+    d1, i1 = _k1_agrees(q, db, dbsq, 10)
+    d2, i2 = fused_topk(q, db.clone(), dbsq, 10)
+    assert torch.equal(d1, d2) and torch.equal(i1, i2)
+
+
 def test_fused_topk_kernel_rejects(dev):
     q = torch.zeros((4, 8), device=dev)
     db = torch.zeros((100, 8), device=dev)

@@ -215,7 +215,8 @@ def test_packed_hop_plain_matches_reference_step(ef, e_sel, slab, metric):
 
 def _tf32(x):
     """cvt.rna.tf32.f32: round the f32 mantissa to 10 bits, to nearest,
-    ties away from zero (the low 13 bits cleared)."""
+    ties away from zero (the low 13 bits cleared).  K1 gives wgmma only
+    values rounded so, which its truncation to TF32 leaves as they are."""
     bits = np.asarray(x, np.float32).view(np.uint32)
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
         np.float32)
@@ -223,20 +224,22 @@ def _tf32(x):
 
 def _split_dot(q, x, terms):
     """K1's tensor-core product in numpy: a = hi + lo, the TF32 products
-    ``terms`` of (hi·hi, hi·lo, lo·hi) exact in f32, summed in f32 over
-    32-dim chunks and the chunks added in f32, as csrc/fused_topk.cu
-    does."""
+    ``terms`` of (hi·hi, hi·lo, lo·hi) exact in f32.  As the wgmma ops of
+    csrc/fused_topk.cu add them: per 32-dim chunk a fresh f32 sum, per k8
+    slice of it one op a term in the order given, each op adding its
+    slice's 8 products; the chunks' sums added in f32."""
     qh, xh = _tf32(q), _tf32(x)
     ql, xl = _tf32(q - qh), _tf32(x - xh)
     pairs = {"hh": (qh, xh), "hl": (qh, xl), "lh": (ql, xh)}
     acc = np.zeros((len(q), len(x)), np.float32)
     for c in range(0, q.shape[1], 32):
         part = np.zeros_like(acc)
-        for t in terms:
-            a, b = pairs[t]
-            part += (a[:, None, c:c + 32] * b[None, :, c:c + 32]).sum(
-                -1, dtype=np.float32)
-        acc += part
+        for s in range(c, min(c + 32, q.shape[1]), 8):
+            for t in terms:
+                a, b = pairs[t]
+                part += (a[:, None, s:s + 8] * b[None, :, s:s + 8]).sum(
+                    -1, dtype=np.float32)
+        acc = part if c == 0 else acc + part
     return acc
 
 
@@ -257,8 +260,9 @@ def test_3xtf32_split_keeps_f32_tolerance():
     want = dbsq[None, :].astype(np.float64) - 2.0 * (
         qs.astype(np.float64) @ db.astype(np.float64).T)
     assert np.median(want.min(axis=1)) < -100  # the cancelling regime
+    # the kernel's order: row lo x query hi, row hi x query lo, hi x hi
     got = dbsq[None, :] - np.float32(2) * _split_dot(
-        qs, db, ("lh", "hl", "hh"))
+        qs, db, ("hl", "lh", "hh"))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     one = dbsq[None, :] - np.float32(2) * _split_dot(qs, db, ("hh",))
     assert not np.allclose(one, want, atol=ATOL, rtol=RTOL)
