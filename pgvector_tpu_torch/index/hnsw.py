@@ -56,6 +56,7 @@ reference offers only on request).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -73,7 +74,7 @@ from ..ops.distance import SPARSE_PAD
 from ..ops.metric import Metric, stored_to_user
 from ..store.table import BitTable, DenseTable, SparseTable
 from ..utils.stats import ScanStats
-from ..utils.telemetry import Progress, timers
+from ..utils.telemetry import Progress, host_read, timers
 from . import hnsw_kernels as K
 
 # reloption bounds — src/hnsw.h:53-62
@@ -372,6 +373,7 @@ class HNSWIndex:
         if self.metric is Metric.COSINE:
             vals = vals.float()
             norms = torch.sqrt(torch.sum(vals * vals, dim=1, keepdim=True))
+            host_read("insert.nonzero")
             keep = (norms[:, 0] > 0).cpu().numpy()
             vals = vals / torch.clamp(norms, min=1e-30)
             return vals.to(self._val_dtype), keep
@@ -430,19 +432,31 @@ class HNSWIndex:
     def build(self) -> None:
         t = self.table
         self.progress.set_phase("initializing")
-        live = np.flatnonzero(t.valid[: t.count].cpu().numpy())
-        if len(live) == 0:
-            return
-        self.progress.set_phase("loading tuples", len(live))
-        with timers.phase("hnsw.build"):
-            self._insert_rows(live)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        with self._reads_counted():
+            host_read("build.live")
+            live = np.flatnonzero(t.valid[: t.count].cpu().numpy())
+            if len(live) == 0:
+                return
+            self.progress.set_phase("loading tuples", len(live))
+            with timers.phase("hnsw.build"):
+                self._insert_rows(live)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
 
     def insert(self, rows) -> None:
         """aminsert analogue (hnswinsert.c:695-743) for a batch of new rows."""
         rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
-        self._insert_rows(rows)
+        with self._reads_counted():
+            self._insert_rows(rows)
+
+    @contextlib.contextmanager
+    def _reads_counted(self):
+        """Add the host reads made inside to ``stats.host_reads``."""
+        r0 = timers.host_reads
+        try:
+            yield
+        finally:
+            self.stats.host_reads += timers.host_reads - r0
 
     # ------------------------------------------------------- core insert path
     def _insert_rows(self, rows: np.ndarray) -> None:
@@ -472,6 +486,7 @@ class HNSWIndex:
         new_keys: List[Optional[bytes]] = []
         if self.dedup:
             with timers.phase("hnsw.dedup_keys"):
+                host_read("dedup.keys")
                 keys = _dup_keys(_host_rows(values))
                 batch_map: Dict[bytes, int] = {}
                 for i, row in enumerate(rows.tolist()):
@@ -873,12 +888,13 @@ class HNSWIndex:
             # their frozen-graph searches; fold the nearest wave-mates at
             # this level into the pools
             if len(elems) > 1:
-                intra_d, intra_i = K.intra_wave_candidates(
-                    self.kind, self.metric, self.values, e_dev,
-                    torch.as_tensor(lv >= lc, device=dev),
-                    min(self.m, len(elems)), sdim=self._pair_sdim())
-                pd = torch.cat([pd, intra_d], dim=1)
-                pi = torch.cat([pi, intra_i], dim=1)
+                with timers.phase("hnsw.connect.select"):
+                    intra_d, intra_i = K.intra_wave_candidates(
+                        self.kind, self.metric, self.values, e_dev,
+                        torch.as_tensor(lv >= lc, device=dev),
+                        min(self.m, len(elems)), sdim=self._pair_sdim())
+                    pd = torch.cat([pd, intra_d], dim=1)
+                    pi = torch.cat([pi, intra_i], dim=1)
             block = _round_pow2(self._wave_eff)
             for start in range(0, len(q_sel), block):
                 chunk = q_sel[start: start + block]
@@ -891,14 +907,14 @@ class HNSWIndex:
                     mask = (torch.arange(block, device=dev) < len(chunk))[:, None]
                     pi_c = torch.where(mask, pi_c, -1)
                     pd_c = torch.where(mask, pd_c, torch.inf)
-                with timers.phase("hnsw.wave.select"):
+                with timers.phase("hnsw.connect.select"):
                     sel_elems, sel_kept = self._select_for(pd_c, pi_c, lm)
                     sel_elems = sel_elems[: len(chunk)]
                     sel_kept = sel_kept[: len(chunk)]
                     self._write_own_lists(elems[chunk], lc, sel_elems, sel_kept)
-                with timers.phase("hnsw.wave.sel_sync"):
+                with timers.phase("hnsw.connect.backlinks"):
+                    host_read("connect.selected")
                     sel_host = sel_elems.cpu().numpy()
-                with timers.phase("hnsw.wave.backlink"):
                     self._apply_backlinks(elems[chunk], lc, sel_host, lm)
 
     def _select_for(self, pool_d, pool_i, lm: int):
@@ -996,26 +1012,36 @@ class HNSWIndex:
         discarded candidates with a persistent visited set
         (ResumeScanItems, hnswscan.c:61-87) until k results pass the
         filter, ``hnsw.max_scan_tuples`` is reached, or the memory cap
-        binds."""
-        ef = int(config.validate("hnsw.ef_search", ef_search)
-                 if ef_search is not None else config.get("hnsw.ef_search"))
-        mode = config.get("hnsw.iterative_scan")
-        qs = self._query_rep(q)
-        nq = K._nq(qs)
-        if self.entry < 0:
-            return (np.full((nq, k), np.inf, np.float32),
-                    np.full((nq, k), -1, np.int64))
-        fmask = (torch.as_tensor(np.asarray(filter_mask, dtype=bool),
-                                 device=self.device)
-                 if filter_mask is not None else None)
-        if mode == "off":
-            d, r = self._search_once(qs, k, ef, fmask)
-            d, r = d.cpu().numpy(), r.cpu().numpy()
-            self.stats.count(nq, r)
+        binds.
+
+        The whole call is the span ``hnsw.search``; inside it,
+        ``hnsw.search.query_in`` lasts until the queries are on the
+        index's device (see ``utils.telemetry``)."""
+        with timers.phase("hnsw.search"), self._reads_counted():
+            with timers.phase("hnsw.search.query_in"):
+                ef = int(config.validate("hnsw.ef_search", ef_search)
+                         if ef_search is not None
+                         else config.get("hnsw.ef_search"))
+                mode = config.get("hnsw.iterative_scan")
+                qs = self._query_rep(q)
+            nq = K._nq(qs)
+            if self.entry < 0:
+                return (np.full((nq, k), np.inf, np.float32),
+                        np.full((nq, k), -1, np.int64))
+            fmask = (torch.as_tensor(np.asarray(filter_mask, dtype=bool),
+                                     device=self.device)
+                     if filter_mask is not None else None)
+            if mode == "off":
+                d, r = self._search_once(qs, k, ef, fmask)
+                host_read("search.distances")
+                d = d.cpu().numpy()
+                host_read("search.rows")
+                r = r.cpu().numpy()
+                self.stats.count(nq, r)
+                return d, r
+            d, r = self._search_iterative(qs, k, ef, fmask, mode)
+            self.stats.count(nq, r, rounds=self._last_scan_rounds)
             return d, r
-        d, r = self._search_iterative(qs, k, ef, fmask, mode)
-        self.stats.count(nq, r, rounds=self._last_scan_rounds)
-        return d, r
 
     def _scan_bytes_per_query(self, ef: int) -> int:
         """Device bytes of one query's scan state at ``ef``: pool slots ×
@@ -1076,26 +1102,29 @@ class HNSWIndex:
         if self._nbr_vals is not None and self._nbr_vals.dtype == dtype:
             return self._nbr_vals
         self._drop_packed()
-        vecs = self.values
-        if dtype == torch.int8:
-            scale = torch.clamp(
-                torch.amax(torch.abs(vecs.float()), dim=0), min=1e-30) / 127.0
-            q8 = torch.empty(vecs.shape, dtype=torch.int8, device=self.device)
-            norm2 = torch.empty(vecs.shape[0], device=self.device)
-            for s in range(0, vecs.shape[0], 1 << 18):
-                v = vecs[s: s + (1 << 18)].float()
-                c = torch.clamp(torch.round(v / scale), -127, 127)
-                q8[s: s + (1 << 18)] = c.to(torch.int8)
-                norm2[s: s + (1 << 18)] = torch.sum(
-                    torch.square(c * scale), dim=1)
-            vecs, self._nbr_scale, self._nbr_norm2 = q8, scale, norm2
-        out = torch.empty((self.cap_e, 2 * self.m, self.table.dim),
-                          dtype=dtype, device=self.device)
-        chunk = min(1 << 16, self.cap_e)
-        for s in range(0, self.cap_e, chunk):
-            nb = self.nbr0[s: s + chunk]
-            # bf16: round to nearest even, as JAX's astype
-            out[s: s + chunk] = vecs[K._long(nb)].to(dtype)
+        with timers.phase("hnsw.slab_pack"):
+            vecs = self.values
+            if dtype == torch.int8:
+                scale = torch.clamp(torch.amax(torch.abs(vecs.float()), dim=0),
+                                    min=1e-30) / 127.0
+                q8 = torch.empty(vecs.shape, dtype=torch.int8,
+                                 device=self.device)
+                norm2 = torch.empty(vecs.shape[0], device=self.device)
+                for s in range(0, vecs.shape[0], 1 << 18):
+                    v = vecs[s: s + (1 << 18)].float()
+                    c = torch.clamp(torch.round(v / scale), -127, 127)
+                    q8[s: s + (1 << 18)] = c.to(torch.int8)
+                    norm2[s: s + (1 << 18)] = torch.sum(
+                        torch.square(c * scale), dim=1)
+                vecs, self._nbr_scale, self._nbr_norm2 = q8, scale, norm2
+            out = torch.empty((self.cap_e, 2 * self.m, self.table.dim),
+                              dtype=dtype, device=self.device)
+            chunk = min(1 << 16, self.cap_e)
+            for s in range(0, self.cap_e, chunk):
+                nb = self.nbr0[s: s + chunk]
+                # bf16: round to nearest even, as JAX's astype
+                out[s: s + chunk] = vecs[K._long(nb)].to(dtype)
+            self._sync()  # with timers on, the span is the device's time
         self._nbr_vals = out
         return out
 
@@ -1119,6 +1148,7 @@ class HNSWIndex:
         #: hops launched: the beam loop reads the device every few hops
         self._last_scan_steps = steps
         self._last_scan_launches = stats["launches"]
+        self.stats.query_hops += stats["query_hops"]
         return stored_to_user(self.metric, d), r
 
     def _search_iterative(self, qs, k: int, ef: int, fmask, mode: str):
@@ -1151,10 +1181,13 @@ class HNSWIndex:
             batches += 1
             d_dev, r_dev = K._expand_topk(pool_d, pool_i, *heap, ef,
                                           HEAPTIDS)
+            host_read("iterative.batch")
             d = self._user_dist(d_dev).cpu().numpy()
+            host_read("iterative.batch")
             r = r_dev.cpu().numpy()
             # meter every scored candidate (the so->tuples contract of
             # hnsw.max_scan_tuples, hnswscan.c:255-266)
+            host_read("iterative.scanned")
             scanned += sc_dev.cpu().numpy().astype(np.int64)
             if mode == "strict_order" and batches > 1:
                 bad = d < prev_max[:, None]
@@ -1168,6 +1201,7 @@ class HNSWIndex:
             acc_d.append(d)
             acc_r.append(r)
             found = _count_found(acc_r, nq)
+            host_read("iterative.discarded")
             disc_live = (~torch.all(torch.isinf(disc_d), dim=1)).cpu().numpy()
             active = (found < k) & (scanned < max_tuples) & disc_live
             state_bytes = (self._scan_bytes_per_query(ef)
@@ -1179,7 +1213,9 @@ class HNSWIndex:
                 if ((found < k) & disc_live).any():
                     dd_dev, dr_dev = K._expand_topk(
                         disc_d, disc_i, *heap, min(dk, 4 * ef), HEAPTIDS)
+                    host_read("iterative.remaining")
                     dd = self._user_dist(dd_dev).cpu().numpy()
+                    host_read("iterative.remaining")
                     dr = dr_dev.cpu().numpy()
                     if mode == "strict_order":
                         bad = dd < prev_max[:, None]
@@ -1204,7 +1240,9 @@ class HNSWIndex:
             torch.as_tensor(all_r, device=self.device), kc)
         out_d = np.full((nq, k), np.inf, np.float32)
         out_r = np.full((nq, k), -1, np.int64)
+        host_read("search.distances")
         out_d[:, :kc] = m_d.cpu().numpy()
+        host_read("search.rows")
         out_r[:, :kc] = m_r.cpu().numpy()
         return out_d, out_r
 

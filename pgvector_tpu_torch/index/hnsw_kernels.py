@@ -18,7 +18,8 @@ From JAX to PyTorch:
 - each ``lax.while_loop`` is a Python loop whose stop test reads one
   device scalar: the beam loops every :data:`HOP_READ_EVERY` hops
   (``.item()``; a hop after a query is done changes nothing for it), the
-  greedy walk every step;
+  greedy walk every step; each such read is counted
+  (``utils.telemetry.host_read``) and adds no read of its own;
 - ids stay int32 in every stored tensor and become int64 only to index;
   JAX clamps out-of-range gathers and drops out-of-range scatters, torch
   raises, so every index is clamped or masked before use;
@@ -76,6 +77,7 @@ from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
 from ..ops.select_neighbors import Gram, form_pairs, select_neighbors
 from ..parallel.mesh import all_gather, shard_rows, to_device
+from ..utils.telemetry import host_read, timers
 
 _MASK32 = 0xFFFFFFFF
 
@@ -474,8 +476,10 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
     read every :data:`HOP_READ_EVERY` hops decides whether every query is
     done, so up to HOP_READ_EVERY - 1 hops more than ``steps`` may run
     (never past ``max_steps``); ``stats``, where given, receives the hops
-    run (``"launches"``) and ``"steps"``.  With the visited set ``off``
-    and no discarded pool, ``packed`` (see :func:`_hop_body`) selects K2,
+    run (``"launches"``), ``"steps"``, each query's count (``"hops"``)
+    and their sum (``"query_hops"``; with ``steps``, from one read of the
+    counts).  With the visited set ``off`` and no discarded pool,
+    ``packed`` (see :func:`_hop_body`) selects K2,
     one :func:`..ops.packed_hop.packed_hop` launch a hop, and ``rows``,
     the (N, D) value table of a dense index, with ``lists``, the level's
     tables ``(nbr0, nbr_up, up_slot, level)``, selects K6, one
@@ -517,8 +521,10 @@ def search_layer(score, neighbors_of, qs, init_d, init_i, ef: int,
             pool_d, pool_i, pool_x, visited, disc, done, scored = out
             scanned += scored
         launched += 1
-        if _read_due(launched, max_steps) and bool(done.all()):
-            break
+        if _read_due(launched, max_steps):
+            host_read("beam.done")
+            if bool(done.all()):
+                break
     steps = _steps(hops, launched, stats)
     if disc is None:
         return pool_d, pool_i, steps
@@ -533,11 +539,17 @@ def _read_due(launched: int, max_steps: int) -> bool:
 
 def _steps(hops, launched: int, stats) -> int:
     """The reference's hop count, the largest of the queries' (one host
-    read; with no query, the hops run), recorded in ``stats`` with the
-    hops run and each query's count."""
-    steps = int(hops.max()) if hops is not None and hops.numel() else launched
+    read of every query's count; with no query, the hops run), recorded
+    in ``stats`` with the hops run, each query's count and their sum
+    (``"query_hops"``)."""
+    steps, total = launched, 0
+    if hops is not None and hops.numel():
+        host_read("beam.hops")
+        h = hops.cpu()
+        steps, total = int(h.max()), int(h.sum())
     if stats is not None:
-        stats.update(launches=launched, steps=steps, hops=hops)
+        stats.update(launches=launched, steps=steps, hops=hops,
+                     query_hops=total)
     return steps
 
 
@@ -559,8 +571,10 @@ def _kernel_search(hop, init_d, init_i, ef: int, max_steps: int, stats):
         pool_d, pool_p, done, left, hops = hop(
             pool_d, pool_p, done=done, hops=hops, out=outs[launched % 2])
         launched += 1
-        if _read_due(launched, max_steps) and int(left.item()) == 0:
-            break
+        if _read_due(launched, max_steps):
+            host_read("beam.left")
+            if int(left.item()) == 0:
+                break
     return pool_d, pool_p >> 1, _steps(hops, launched, stats)
 
 
@@ -586,6 +600,7 @@ def greedy_descent(score, neighbors_of_level, qs, start, start_d, level: int,
     for _ in range(max_steps):
         cur, cur_d, moved = _greedy_body(
             score, lambda e: neighbors_of_level(e, level), qs, cur, cur_d)
+        host_read("descent.moved")
         if not bool(moved.any()):
             break
     return cur, cur_d
@@ -817,7 +832,8 @@ def _group_edges(tgt, src, d, smax: int):
     new_src[run_id[keep], pos[keep]] = ss[keep]
     targets = torch.full((e,), -1, dtype=torch.int32, device=tgt.device)
     targets[run_id[newrun]] = st[newrun]
-    u_count = int(newrun.sum())  # one host read per connect
+    host_read("connect.u_count")
+    u_count = int(newrun.sum().item())  # one host read per connect
     return targets, new_src, u_count
 
 
@@ -912,25 +928,27 @@ def connect_level(kind, metric, values, nbr0, nbr_up, kept0, kept_up,
     ``nbr_up``, ``kept0`` and ``kept_up`` are updated in place, where the
     reference donates them to its jitted kernel."""
     lm = 2 * m if level == 0 else m
-    pool_d, pool_i = _connect_pools(kind, metric, values, elems, eligible,
-                                    pool_d, pool_i, mi, sdim)
-    sel, sel_d, keptf = _connect_select(kind, metric, values, pool_d, pool_i,
-                                        lm, sdim)
     graph = (nbr0, nbr_up, kept0, kept_up, up_slot)
-    _write_lists(*graph, elems, eligible, sel, keptf, level)
+    with timers.phase("hnsw.connect.select"):
+        pool_d, pool_i = _connect_pools(kind, metric, values, elems,
+                                        eligible, pool_d, pool_i, mi, sdim)
+        sel, sel_d, keptf = _connect_select(kind, metric, values, pool_d,
+                                            pool_i, lm, sdim)
+        _write_lists(*graph, elems, eligible, sel, keptf, level)
     # backlinks: group (src → tgt) edges by target, then merge chunks of
     # targets with the wholesale select.  Targets are unique, so no chunk
     # reads another chunk's writes and each chunk writes back at once.
-    tgt = sel.reshape(-1)
-    src = torch.repeat_interleave(torch.where(eligible, elems, -1), lm)
-    targets, new_src, u_count = _group_edges(tgt, src, sel_d.reshape(-1),
-                                             smax)
-    for s in range(0, u_count, chunk):
-        t_c = targets[s:min(s + chunk, u_count)]
-        new_l, new_k, okc = _merge_chunk(
-            kind, metric, values, *graph, t_c,
-            new_src[s:min(s + chunk, u_count)], level, lm, sdim)
-        _write_lists(*graph, t_c, okc, new_l, new_k, level)
+    with timers.phase("hnsw.connect.backlinks"):
+        tgt = sel.reshape(-1)
+        src = torch.repeat_interleave(torch.where(eligible, elems, -1), lm)
+        targets, new_src, u_count = _group_edges(tgt, src, sel_d.reshape(-1),
+                                                 smax)
+        for s in range(0, u_count, chunk):
+            t_c = targets[s:min(s + chunk, u_count)]
+            new_l, new_k, okc = _merge_chunk(
+                kind, metric, values, *graph, t_c,
+                new_src[s:min(s + chunk, u_count)], level, lm, sdim)
+            _write_lists(*graph, t_c, okc, new_l, new_k, level)
 
 
 def connect_level_sharded(mesh, kind, metric, values, nbr0, nbr_up, kept0,
@@ -951,38 +969,43 @@ def connect_level_sharded(mesh, kind, metric, values, nbr0, nbr_up, kept0,
     devs = list(mesh.devices.flat)
     home = nbr0.device
     lm = 2 * m if level == 0 else m
-    pool_d, pool_i = _connect_pools(kind, metric, values, elems, eligible,
-                                    pool_d, pool_i, mi, sdim)
-    parts = []
-    for dev, (lo, hi) in zip(devs, shard_rows(elems.shape[0], len(devs))):
-        if hi > lo:
-            parts.append(_connect_select(
-                kind, metric, to_device(values, dev),
-                to_device(pool_d[lo:hi], dev), to_device(pool_i[lo:hi], dev),
-                lm, sdim))
-    sel, sel_d, keptf = (all_gather([p[j] for p in parts], home)
-                         for j in range(3))
     graph = (nbr0, nbr_up, kept0, kept_up, up_slot)
-    _write_lists(*graph, elems, eligible, sel, keptf, level)
-    tgt = sel.reshape(-1)
-    src = torch.repeat_interleave(torch.where(eligible, elems, -1), lm)
-    targets, new_src, u_count = _group_edges(tgt, src, sel_d.reshape(-1),
-                                             smax)
-    starts = list(range(0, u_count, chunk))
-    merged = []
-    for dev, (c0, c1) in zip(devs, shard_rows(len(starts), len(devs))):
-        if c1 <= c0:
-            continue
-        g_dev = to_device(graph, dev)
-        v_dev = to_device(values, dev)
-        for s in starts[c0:c1]:
-            e = min(s + chunk, u_count)
-            merged.append((s, e) + _merge_chunk(
-                kind, metric, v_dev, *g_dev, to_device(targets[s:e], dev),
-                to_device(new_src[s:e], dev), level, lm, sdim))
-    for s, e, new_l, new_k, okc in merged:
-        _write_lists(*graph, targets[s:e], to_device(okc, home),
-                     to_device(new_l, home), to_device(new_k, home), level)
+    with timers.phase("hnsw.connect.select"):
+        pool_d, pool_i = _connect_pools(kind, metric, values, elems,
+                                        eligible, pool_d, pool_i, mi, sdim)
+        parts = []
+        for dev, (lo, hi) in zip(devs, shard_rows(elems.shape[0],
+                                                  len(devs))):
+            if hi > lo:
+                parts.append(_connect_select(
+                    kind, metric, to_device(values, dev),
+                    to_device(pool_d[lo:hi], dev),
+                    to_device(pool_i[lo:hi], dev), lm, sdim))
+        sel, sel_d, keptf = (all_gather([p[j] for p in parts], home)
+                             for j in range(3))
+        _write_lists(*graph, elems, eligible, sel, keptf, level)
+    with timers.phase("hnsw.connect.backlinks"):
+        tgt = sel.reshape(-1)
+        src = torch.repeat_interleave(torch.where(eligible, elems, -1), lm)
+        targets, new_src, u_count = _group_edges(tgt, src, sel_d.reshape(-1),
+                                                 smax)
+        starts = list(range(0, u_count, chunk))
+        merged = []
+        for dev, (c0, c1) in zip(devs, shard_rows(len(starts), len(devs))):
+            if c1 <= c0:
+                continue
+            g_dev = to_device(graph, dev)
+            v_dev = to_device(values, dev)
+            for s in starts[c0:c1]:
+                e = min(s + chunk, u_count)
+                merged.append((s, e) + _merge_chunk(
+                    kind, metric, v_dev, *g_dev,
+                    to_device(targets[s:e], dev),
+                    to_device(new_src[s:e], dev), level, lm, sdim))
+        for s, e, new_l, new_k, okc in merged:
+            _write_lists(*graph, targets[s:e], to_device(okc, home),
+                         to_device(new_l, home), to_device(new_k, home),
+                         level)
 
 
 # ---------------------------------------------------------------------------
@@ -1157,39 +1180,46 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     ``max_steps`` caps the layer-0 hops (0: the 8·ef + 64 of Algorithm
     2's loop bound).
     Returns (stored distances, row ids, layer-0 hops); ``stats``, where
-    given, receives the layer-0 hops launched (:func:`search_layer`).
+    given, receives the layer-0 hops launched and the hops summed over
+    the queries (:func:`search_layer`).  Its three stages are the spans
+    ``hnsw.search.descent``, ``.layer0`` and ``.rerank`` (the re-rank and
+    the TID expansion), each with device markers
+    (``utils.telemetry.DEVICE_SPANS``).
     Only a dense index has packed values (the reference packs dense rows
     only, hnsw.py:1203); without them a dense index's layer-0 hops under the
     visited set ``off`` run in K6."""
     score = make_scorer(kind, metric, values, sdim)
     nbrs = _neighbors_closure(nbr0, nbr_up, up_slot)
     nq = _nq(qs)
-    cur = torch.full((nq,), entry, dtype=torch.int32, device=_dev(qs))
-    cur_d = score(qs, cur[:, None])[:, 0]
-    for lc in range(entry_level, 0, -1):
-        cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
-                                    max_steps=512)
-    packed = None
-    if packed_vals is not None:
-        int8 = None
-        if packed_vals.dtype == torch.int8:
-            qc, sq, q2 = int8_query(qs, packed_scale)
-            int8 = (qc, sq, q2, packed_norm2, packed_scale)
-        packed = (packed_vals, qs.contiguous(), nbr0, int8)
-    visited = (visited_init(nq, ef, vmode, _dev(qs)) if vmode != "off"
-               else None)
-    pool_d, pool_i, steps = search_layer(
-        score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
-        ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
-        packed=packed, metric=metric, visited=visited, vmode=vmode,
-        rows=values if kind == "dense" else None,
-        lists=(nbr0, nbr_up, up_slot, 0), stats=stats)
-    if rerank:
-        pool_d = score(qs, pool_i)  # exact f32 distances for the final pool
-        pool_d, order = torch.sort(pool_d, dim=1, stable=True)
-        pool_i = torch.gather(pool_i, 1, order)
-    d, r = _expand_topk(pool_d, pool_i, elem_rows, row_valid, fmask, k,
-                        heaptids)
+    with timers.phase("hnsw.search.descent"):
+        cur = torch.full((nq,), entry, dtype=torch.int32, device=_dev(qs))
+        cur_d = score(qs, cur[:, None])[:, 0]
+        for lc in range(entry_level, 0, -1):
+            cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
+                                        max_steps=512)
+    with timers.phase("hnsw.search.layer0"):
+        packed = None
+        if packed_vals is not None:
+            int8 = None
+            if packed_vals.dtype == torch.int8:
+                qc, sq, q2 = int8_query(qs, packed_scale)
+                int8 = (qc, sq, q2, packed_norm2, packed_scale)
+            packed = (packed_vals, qs.contiguous(), nbr0, int8)
+        visited = (visited_init(nq, ef, vmode, _dev(qs)) if vmode != "off"
+                   else None)
+        pool_d, pool_i, steps = search_layer(
+            score, lambda e: nbrs(e, 0), qs, cur_d[:, None], cur[:, None],
+            ef=ef, max_steps=max_steps or (8 * ef + 64), expand=expand,
+            packed=packed, metric=metric, visited=visited, vmode=vmode,
+            rows=values if kind == "dense" else None,
+            lists=(nbr0, nbr_up, up_slot, 0), stats=stats)
+    with timers.phase("hnsw.search.rerank"):
+        if rerank:
+            pool_d = score(qs, pool_i)  # exact f32 distances, final pool
+            pool_d, order = torch.sort(pool_d, dim=1, stable=True)
+            pool_i = torch.gather(pool_i, 1, order)
+        d, r = _expand_topk(pool_d, pool_i, elem_rows, row_valid, fmask, k,
+                            heaptids)
     return d, r, steps
 
 

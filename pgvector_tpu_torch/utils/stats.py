@@ -12,6 +12,14 @@ hnswscan.c:206-210).  Every index here carries a ``ScanStats`` instance
 - ``searches``: graph/posting descents — queries × (1 + iterative
   resumes), the nsearches analogue
 - ``tuples_returned``: non-null result tuples emitted
+
+Two counts of the port's own, outside ``as_dict()`` (the fields the
+reference shares):
+
+- ``host_reads``: blocking device → host reads made by the index's
+  scans and inserts (``utils.telemetry.host_read``), on the CPU too
+- ``query_hops``: layer-0 hops summed over the queries of the HNSW
+  index's plain scans, K2's work count
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import numpy as np
 
 
 class ScanStats:
-    __slots__ = ("scans", "queries", "searches", "tuples_returned")
+    __slots__ = ("scans", "queries", "searches", "tuples_returned",
+                 "host_reads", "query_hops")
 
     def __init__(self) -> None:
         self.reset()
@@ -30,6 +39,8 @@ class ScanStats:
         self.queries = 0
         self.searches = 0
         self.tuples_returned = 0
+        self.host_reads = 0
+        self.query_hops = 0
 
     def count(self, nq: int, rows, rounds: int = 1) -> None:
         self.scans += 1
@@ -43,4 +54,5 @@ class ScanStats:
                 "tuples_returned": self.tuples_returned}
 
     def __repr__(self) -> str:  # pragma: no cover - debug convenience
-        return f"ScanStats({self.as_dict()})"
+        return (f"ScanStats({self.as_dict()}, host_reads={self.host_reads}, "
+                f"query_hops={self.query_hops})")
