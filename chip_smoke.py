@@ -1361,7 +1361,9 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     against its plain version on hop states captured from the int8
     searches, timed beside its bound and the bf16 slab's kernel at the
     same hop; last, what ``auto`` picks for 1M × 960 on this card.
-    Returns the K2-int8 row of the kernel line."""
+    Returns K7 against its plain version on this graph
+    (``tools/k7_walk.walk_vs_plain``; one K7 launch a search) and the
+    K2-int8 row of the kernel line."""
     import numpy as np
     import torch
 
@@ -1372,8 +1374,10 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     from pgvector_tpu_torch.ops import distance as D
     from pgvector_tpu_torch.ops.fused_topk import fused_topk, l2_root_bound
     from pgvector_tpu_torch.ops.gather_hop import hop_buffers
+    from pgvector_tpu_torch.ops.greedy_walk import greedy_walk
     from pgvector_tpu_torch.ops.packed_hop import (
         int8_l1_bound, packed_hop, packed_hop_plain)
+    from pgvector_tpu_torch.tools.k7_walk import walk_vs_plain
     from pgvector_tpu_torch.utils.telemetry import timers
     from torch_parity import assert_same_topk
 
@@ -1441,6 +1445,7 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
         return packed_hop(*a, **kw)
 
     tiers = {}
+    walks = greedy_walk.launches
     try:
         for tier in ("bf16", "int8"):
             if tier == "int8":
@@ -1472,6 +1477,9 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
             check(packed_hop.launches_by_slab[tier] == hops,
                   f"every {tier} layer-0 hop went through K2: "
                   f"{packed_hop.launches_by_slab[tier]} launches for {hops}")
+        check(greedy_walk.launches - walks == 8,
+              f"each of 8 searches walked its upper levels in one K7 launch: "
+              f"{greedy_walk.launches - walks} launches")
         for ef in (40, 100):
             b16, i8 = (next(s["recall_at_10"] for s in tiers[t]["sweep"]
                             if s["ef"] == ef) for t in ("bf16", "int8"))
@@ -1556,6 +1564,8 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
         lambda: packed_hop(*a_b, **kw, out=bufs), reps=20)
     packed_hop.launches_by_slab = count
     packed_hop.launches_by_path = paths
+    # K7 on this graph's upper levels at GIST-960's width
+    walk = walk_vs_plain(idx, gqs)
     total = torch.cuda.get_device_properties(dev).total_memory
     pick_1m = auto_packed_dtype(1_000_000, 16, dim, Metric.L2, total)
     check(pick_1m == torch.int8, f"auto picks int8 at 1M x {dim}, not {pick_1m}")
@@ -1571,7 +1581,7 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
                                 kernel_events=k2_events, plain_ms=k2_plain),
           "k2_bf16_slab": dict(wk_b, ef=ef, hop=4, max_abs_err=bf16_err,
                                ms=bf16_ms, kernel_only_ms=bf16_kernel_ms),
-          "launches_by_path": paths,
+          "launches_by_path": paths, "greedy_walk_vs_plain": walk,
           "auto_plan_1m": {"rows": 1_000_000, "dim": dim, "m": 16,
                            "total_memory": total,
                            "pick": str(pick_1m).replace("torch.", "")},
@@ -1580,7 +1590,7 @@ def halfvec_phase(smi, dev, n=200_000, nq=8000, k=10):
     del idx, table, flat, a, kw, a_b, b16, bufs
     gc.collect()
     torch.cuda.empty_cache()
-    return {"name": "packed_hop_int8", "route": "cuda",
+    return walk, {"name": "packed_hop_int8", "route": "cuda",
             "source": "pgvector_tpu_torch/csrc/packed_hop.cu",
             "replaces": "pgvector_tpu/index/hnsw_kernels.py:202 "
                         "(_int8_point_scores, an XLA program) in front of "
@@ -2612,8 +2622,10 @@ def main():
     from pgvector_tpu_torch.index import hnsw_kernels
     from pgvector_tpu_torch.ops.hop_tail import hop_tail, hop_tail_plain
     from pgvector_tpu_torch.ops.gather_hop import hop_buffers
+    from pgvector_tpu_torch.ops.greedy_walk import greedy_walk
     from pgvector_tpu_torch.ops.packed_hop import packed_hop, packed_hop_plain
     from pgvector_tpu_torch.ops.select_neighbors import Gram
+    from pgvector_tpu_torch.tools.k7_walk import walk_vs_plain
     from pgvector_tpu_torch.utils.telemetry import timers
 
     dev = torch.device("cuda", 0)
@@ -2839,6 +2851,7 @@ def main():
     sweep = []
     floors = {40: 0.94, 100: 0.985}  # the reference: 0.9583 and 0.9947
     hops = 0  # layer-0 hops of every search below, warm-ups included
+    walks = greedy_walk.launches
     for ef in (40, 100):
         idx.search(qs, k, ef_search=ef)  # warm-up: builds the slab cache
         torch.cuda.synchronize()
@@ -2857,10 +2870,14 @@ def main():
                       "layer0_hops": idx._last_scan_steps})
         check(recall >= floors[ef], f"recall@10 {recall} >= {floors[ef]} "
               f"at ef={ef}")
+    check(greedy_walk.launches - walks == 4,
+          f"each of 4 searches walked its upper levels in one K7 launch: "
+          f"{greedy_walk.launches - walks} launches")
     launches = {"fused_topk": fused_topk.launches,
                 "packed_hop": packed_hop.launches,
                 "packed_hop_by_path": dict(packed_hop.launches_by_path),
-                "hop_tail": hop_tail.launches}
+                "hop_tail": hop_tail.launches,
+                "greedy_walk": greedy_walk.launches - walks}
     check(launches["packed_hop"] == hops,
           f"every layer-0 hop went through K2: {launches['packed_hop']} "
           f"launches for {hops} hops")
@@ -2950,6 +2967,10 @@ def main():
     # (C = 1,000 + 16, past the shared-memory route)
     k3_rows, k6_rows = select_vs_plain(idx, cap4["select"], dev), \
         gather_hop_vs_plain(cap4["hops"])
+    # K7 on the 1M graph's upper levels, from the search's starts
+    walk4 = walk_vs_plain(idx, qs)
+    emit({"phase": "greedy_walk_vs_plain", "atol": ATOL, "rtol": RTOL,
+          **walk4})
     emit({"phase": "select_vs_plain", "tolerance": "bit for bit",
           "cases": k3_rows})
     emit({"phase": "gather_hop_vs_plain", "atol": ATOL, "rtol": RTOL,
@@ -2994,7 +3015,7 @@ def main():
 
     # ---- 9. halfvec at GIST-1M's width, on a table of its own -----------
     bk.reset()
-    int8_row = halfvec_phase(smi, dev, n=min(200_000, args.n))
+    walk9, int8_row = halfvec_phase(smi, dev, n=min(200_000, args.n))
     build_by_phase["9"] = bk.read("9", all_dense=True)
 
     # ---- 11. the mesh paths: four shards of the card ---------------------
@@ -3079,6 +3100,21 @@ def main():
          "block_kernel_only_ms": k3_main["block_kernel_only_ms"],
          "library_ms": None,
          "timed_shape": [k3_main["rows"], k3_main["c"], k3_main["lm"]]},
+        {"name": "greedy_walk", "route": "cuda",
+         "source": "pgvector_tpu_torch/csrc/greedy_walk.cu",
+         "replaces": "pgvector_tpu/index/hnsw_kernels.py:713 "
+                     "(greedy_descent, _greedy_body :703; an XLA "
+                     "while_loop, no Pallas kernel)",
+         "launches_by_phase": {"4": launches["greedy_walk"], "9": 8},
+         "on_main_path": True,
+         "max_abs_err": max(walk4["max_abs_err"], walk9["max_abs_err"]),
+         "ends_equal_share": min(walk4["ends_equal_share"],
+                                 walk9["ends_equal_share"]),
+         **{key: walk4[key] for key in ("ms", "kernel_only_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+         "library_ms": None,
+         "at_960": {key: walk9[key] for key in (
+             "ms", "kernel_only_ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "gather_hop", "route": "cuda",
          "source": "pgvector_tpu_torch/csrc/gather_hop.cu",
          "replaces": "pgvector_tpu/index/hnsw_kernels.py:588 (_hop_step: "

@@ -17,8 +17,8 @@ From JAX to PyTorch:
 
 - each ``lax.while_loop`` is a Python loop whose stop test reads one
   device scalar: the beam loops every :data:`HOP_READ_EVERY` hops
-  (``.item()``; a hop after a query is done changes nothing for it), the
-  greedy walk every step; each such read is counted
+  (``.item()``; a hop after a query is done changes nothing for it), a
+  bit or sparse index's greedy walk every step; each such read is counted
   (``utils.telemetry.host_read``) and adds no read of its own;
 - ids stay int32 in every stored tensor and become int64 only to index;
   JAX clamps out-of-range gathers and drops out-of-range scatters, torch
@@ -49,7 +49,11 @@ SelectNeighbors' keep/prune loop is K3
 (:func:`..ops.select_neighbors.select_neighbors`) everywhere, which for
 dense L2, inner product and cosine forms the pairwise distances from the
 Gram block itself.  Every bit distance — hop, wave search and pairwise
-select block — is K5 (:func:`..ops.bit_scan.bit_point_scores`).
+select block — is K5 (:func:`..ops.bit_scan.bit_point_scores`).  The
+greedy ef=1 descent of a dense index (:func:`descend`: a search's upper
+levels, a wave's greedy level) is one K7 launch
+(:func:`..ops.greedy_walk.greedy_walk`: each query walks on the card
+until it stops, with no host read).
 
 The mesh build (:func:`wave_search_sharded`, :func:`connect_level_sharded`)
 splits a wave's queries and its select rows and backlink chunks over the
@@ -73,6 +77,7 @@ from ..ops.distance import (dense_point_scores, dot_precision,
 # version imports; the reference keeps it here (hnsw_kernels.py:202)
 from ..ops.distance import int8_point_scores  # noqa: F401
 from ..ops.gather_hop import dedupe_hop, gather_hop, hop_buffers
+from ..ops.greedy_walk import greedy_walk
 from ..ops.metric import Metric
 from ..ops.packed_hop import packed_hop
 from ..ops.select_neighbors import Gram, form_pairs, select_neighbors
@@ -606,6 +611,23 @@ def greedy_descent(score, neighbors_of_level, qs, start, start_d, level: int,
     return cur, cur_d
 
 
+def descend(kind: str, metric: Metric, values, nbr_up, up_slot, score,
+            nbrs, qs, cur, cur_d, level_hi: int, level_lo: int):
+    """The ef=1 walk over levels ``level_hi`` down to ``level_lo`` (none
+    where level_hi < level_lo): a dense index's is one K7 launch
+    (:func:`..ops.greedy_walk.greedy_walk`, no host read); a bit or
+    sparse index's is :func:`greedy_descent` a level, a read a step."""
+    if level_hi < level_lo:
+        return cur, cur_d
+    if kind == "dense":
+        return greedy_walk(values, nbr_up, up_slot, qs.contiguous(), cur,
+                           cur_d, level_hi, level_lo, metric, max_steps=512)
+    for lc in range(level_hi, level_lo - 1, -1):
+        cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
+                                    max_steps=512)
+    return cur, cur_d
+
+
 # ---------------------------------------------------------------------------
 # SelectNeighbors heuristic (Algorithm 4 — hnswutils.c:1062-1163)
 # ---------------------------------------------------------------------------
@@ -1077,7 +1099,8 @@ def wave_search(kind, metric, values, nbr0, nbr_up, up_slot, qs, lv,
     rows = values if kind == "dense" else None
 
     def greedy_fn(lc, qs_, cur, cur_d):
-        return greedy_descent(score, nbrs, qs_, cur, cur_d, lc, max_steps=512)
+        return descend(kind, metric, values, nbr_up, up_slot, score, nbrs,
+                       qs_, cur, cur_d, lc, lc)
 
     def beam_fn(lc, qs_, pool_d, pool_i):
         visited = (visited_init(_nq(qs_), ef, vmode, _dev(qs_))
@@ -1194,9 +1217,8 @@ def query_search(kind, metric, values, nbr0, nbr_up, up_slot, elem_rows,
     with timers.phase("hnsw.search.descent"):
         cur = torch.full((nq,), entry, dtype=torch.int32, device=_dev(qs))
         cur_d = score(qs, cur[:, None])[:, 0]
-        for lc in range(entry_level, 0, -1):
-            cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
-                                        max_steps=512)
+        cur, cur_d = descend(kind, metric, values, nbr_up, up_slot, score,
+                             nbrs, qs, cur, cur_d, entry_level, 1)
     with timers.phase("hnsw.search.layer0"):
         packed = None
         if packed_vals is not None:
@@ -1243,9 +1265,8 @@ def query_search_first(kind, metric, values, nbr0, nbr_up, up_slot, qs,
     nq, dev = _nq(qs), _dev(qs)
     cur = torch.full((nq,), entry, dtype=torch.int32, device=dev)
     cur_d = score(qs, cur[:, None])[:, 0]
-    for lc in range(entry_level, 0, -1):
-        cur, cur_d = greedy_descent(score, nbrs, qs, cur, cur_d, lc,
-                                    max_steps=512)
+    cur, cur_d = descend(kind, metric, values, nbr_up, up_slot, score, nbrs,
+                         qs, cur, cur_d, entry_level, 1)
     visited = visited_init(nq, ef, device=dev)
     disc = (torch.full((nq, dk), torch.inf, device=dev),
             torch.full((nq, dk), -1, dtype=torch.int32, device=dev))

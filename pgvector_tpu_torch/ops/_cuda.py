@@ -60,6 +60,11 @@ _SIGNATURES = {
     "pgvt_gather_hop": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I,
                         _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P],
+    # rows, n_rows, dtype, nbr_up, slots, levels, m, up_slot, cap, qs,
+    # q_type, q, d, cur_in, cur_d_in, level_hi, level_lo, max_steps,
+    # metric, out_cur, out_d, stream
+    "pgvt_greedy_walk": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
+                         _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

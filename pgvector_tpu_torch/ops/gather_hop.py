@@ -102,15 +102,16 @@ def select_expand(pool_d: torch.Tensor, pool_p: torch.Tensor, ef: int,
     return pool_p, torch.where(ok, torch.gather(pool_i, 1, sel), -1), done
 
 
-def hop_lists(sel: torch.Tensor, nbr0: torch.Tensor, nbr_up: torch.Tensor,
+def hop_lists(sel: torch.Tensor, nbr0, nbr_up: torch.Tensor,
               up_slot: torch.Tensor, level: int, n_rows: int) -> torch.Tensor:
     """(Q, E) expanded element ids → (Q, E·w) candidate ids, w = 2m at
     level 0 and m above it: each element's list, -1 where the element is
-    -1, has no list at this level or lies past the tables, and where a
-    listed id lies at or past ``n_rows``."""
+    -1, has no list at this level or lies past the tables (``up_slot``
+    has an entry an element, as ``nbr0`` a row; ``nbr0`` is read at level
+    0 only), and where a listed id lies at or past ``n_rows``."""
     q, e = sel.shape
     flat = sel.reshape(-1)
-    live = (flat >= 0) & (flat < nbr0.shape[0])
+    live = (flat >= 0) & (flat < up_slot.shape[0])
     safe = torch.where(live, flat, 0).long()
     if level == 0:
         out = nbr0[safe]

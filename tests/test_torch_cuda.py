@@ -15,7 +15,10 @@ cosine, NaN and ±inf among the products), and K6 (gather_hop, the whole
 hop) against its plain version for every metric and value type, level 0
 and above, done flags and the count of queries not done included, with
 a build that runs every select through K3 and every hop through one K6
-launch; the
+launch; K7 (greedy_walk, the upper levels' greedy descent) equal to its
+plain version on exact-integer values, and a search that walks its upper
+levels in one K7 launch with no host read, at the per-level descent's
+recall; the
 planner's calibrated pick against the timed paths; the mesh paths on four
 shards of one card (the sharded exact search through K1 against
 FlatIndex, the mesh build bit for bit, the fan-out against the 1-D
@@ -58,6 +61,8 @@ from pgvector_tpu_torch.ops.packed_hop import (  # noqa: E402
     int8_l1_bound, packed_hop, packed_hop_plain)
 from pgvector_tpu_torch.ops.gather_hop import (  # noqa: E402
     gather_hop, gather_hop_plain)
+from pgvector_tpu_torch.ops.greedy_walk import (  # noqa: E402
+    greedy_walk, greedy_walk_plain)
 from pgvector_tpu_torch.ops.select_neighbors import (  # noqa: E402
     Gram, select_neighbors, select_neighbors_plain)
 from torch_parity import (  # noqa: E402
@@ -468,6 +473,132 @@ def test_gather_hop_kernel_rejects(dev):
     with pytest.raises(ValueError):  # ef + W over the sort's 4,096 lanes
         wide = args[2].repeat(1, 80)
         gather_hop(*args[:2], wide, *args[3:], 24, 4, Metric.L2)
+
+
+def _walk_case(dev, d, dtype, q_dtype, metric, seed, n=3000, levels=3,
+               m=16, q=300):
+    """Seeded inputs of one greedy walk with small-integer values and
+    queries, so every f32 distance is exact whatever the order of its sum
+    and the kernel and the plain walk must agree bit for bit, ties
+    included: random upper lists (some -1, some ids past the rows, some
+    elements without a slot), a NaN row, starts anywhere (some at an
+    element with no slot, one at -1)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    vals[17] = np.nan
+    qs = rng.integers(-3, 4, size=(q, d)).astype(np.float32)
+    nbr_up = rng.integers(0, n, size=(n, levels, m)).astype(np.int32)
+    nbr_up[rng.random(nbr_up.shape) < 0.1] = -1
+    past = rng.random(nbr_up.shape) < 0.02
+    nbr_up[past] = n + rng.integers(0, 50, size=int(past.sum()))
+    nbr_up[rng.integers(0, n, size=n // 20), :, 3] = 17  # the NaN row
+    up_slot = np.arange(n, dtype=np.int32)
+    up_slot[rng.random(n) < 0.1] = -1
+    cur = rng.integers(0, n, size=q).astype(np.int32)
+    cur[0] = -1
+    tv = torch.from_numpy(vals).to(dev, dtype)
+    tq = torch.from_numpy(qs).to(dev, q_dtype)
+    tcur = torch.from_numpy(cur).to(dev)
+    safe = torch.clamp(tcur, min=0).long()
+    cur_d = TD.dense_point_scores(metric, tq, tv[safe][:, None],
+                                  tcur[:, None])[:, 0]
+    return (tv, torch.from_numpy(nbr_up).to(dev),
+            torch.from_numpy(up_slot).to(dev), tq, tcur, cur_d)
+
+
+@pytest.mark.parametrize("d", [7, 33, 128, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("metric", ["L2", "IP", "L1"])
+def test_greedy_walk_kernel_matches_plain(dev, d, dtype, metric):
+    """K7 against its plain version on the card, on exact-integer values
+    (every distance exact, so the walks agree bit for bit and ties break
+    alike: the first minimum in list order): row-aligned and unaligned
+    rows, every metric code and value type, queries in the table's type
+    and in f32, three levels, one level, and the step cap; one launch a
+    call."""
+    q_dtype = torch.float32 if d == 33 else dtype
+    args = _walk_case(dev, d, dtype, q_dtype, Metric[metric],
+                      seed=d + len(metric))
+    moved = 0
+    for hi, lo, steps in ((3, 1, 512), (2, 2, 512), (3, 1, 2)):
+        launches = greedy_walk.launches
+        cur1, d1 = greedy_walk(*args, hi, lo, Metric[metric], steps)
+        torch.cuda.synchronize()
+        assert greedy_walk.launches == launches + 1
+        cur0, d0 = greedy_walk_plain(*args, hi, lo, Metric[metric], steps)
+        np.testing.assert_array_equal(cur1.cpu().numpy(), cur0.cpu().numpy())
+        np.testing.assert_array_equal(d1.cpu().numpy(), d0.cpu().numpy())
+        moved += int((cur1 != args[4]).sum())
+    assert moved > len(args[4])
+
+
+def test_greedy_walk_kernel_rejects(dev):
+    args = _walk_case(dev, 16, torch.float32, torch.float32, Metric.L2,
+                      seed=1, q=8)
+    with pytest.raises(ValueError):  # f64 values
+        greedy_walk(args[0].double(), *args[1:], 3, 1, Metric.L2)
+    with pytest.raises(ValueError):  # the queries' width
+        greedy_walk(*args[:3], args[3][:, :8].contiguous(), *args[4:], 3, 1,
+                    Metric.L2)
+    with pytest.raises(ValueError):  # a level the tables do not hold
+        greedy_walk(*args, 4, 1, Metric.L2)
+    with pytest.raises(ValueError):  # level 0 is the beam's
+        greedy_walk(*args, 1, 0, Metric.L2)
+    with pytest.raises(ValueError):  # int64 starts
+        greedy_walk(*args[:4], args[4].long(), args[5], 3, 1, Metric.L2)
+
+
+def _per_level_descend(kind, metric, values, nbr_up, up_slot, score, nbrs,
+                       qs, cur, cur_d, level_hi, level_lo):
+    """The descent before K7: ``greedy_descent`` a level at a time, a host
+    read a step."""
+    from pgvector_tpu_torch.index import hnsw_kernels
+
+    for lc in range(level_hi, level_lo - 1, -1):
+        cur, cur_d = hnsw_kernels.greedy_descent(score, nbrs, qs, cur, cur_d,
+                                                 lc, max_steps=512)
+    return cur, cur_d
+
+
+def test_hnsw_search_descends_in_one_greedy_walk(dev, monkeypatch):
+    """A dense search walks every upper level in one K7 launch, with no
+    ``descent.moved`` read; its recall@10 at ef 40 is the per-level
+    descent's within 0.002."""
+    from pgvector_tpu_torch.index import hnsw_kernels
+    from pgvector_tpu_torch.utils import telemetry
+
+    rng = np.random.default_rng(23)
+    db = rng.normal(size=(30000, 32)).astype(np.float32)
+    q = rng.normal(size=(2000, 32)).astype(np.float32)
+    table = DenseTable(32, device=dev)
+    table.insert(db)
+    idx = HNSWIndex(table, Metric.L2, m=16, ef_construction=64)
+    assert idx.entry_level >= 2
+    _, gt = FlatIndex(table, Metric.L2).search(q, 10)
+    idx.search(q, 10, ef_search=40)  # the slab, built
+    sites = {}
+    real = telemetry.timers.host_read
+
+    def count(site):
+        sites[site] = sites.get(site, 0) + 1
+        real(site)
+
+    monkeypatch.setattr(telemetry.timers, "host_read", count)
+    launches = greedy_walk.launches
+    _, r1 = idx.search(q, 10, ef_search=40)
+    assert greedy_walk.launches == launches + 1
+    assert "descent.moved" not in sites and sites.get("beam.left", 0) >= 1
+    monkeypatch.setattr(hnsw_kernels, "descend", _per_level_descend)
+    _, r0 = idx.search(q, 10, ef_search=40)
+    assert greedy_walk.launches == launches + 1
+    assert sites["descent.moved"] >= idx.entry_level
+
+    def recall(r):
+        return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(r, gt)])
+
+    assert recall(r1) >= 0.8  # 32-d gaussian rows: a hard set at ef 40
+    assert abs(recall(r1) - recall(r0)) <= 0.002, (recall(r1), recall(r0))
 
 
 def test_build_runs_select_and_hops_on_kernels(dev, monkeypatch):
